@@ -1,0 +1,26 @@
+"""Carry state across from the JAX reference.
+
+The reference's parameters and EF memory arrive as numpy arrays (the
+tests hand them over with ``np.asarray``); these helpers turn them into
+the port's tensors, so both packages can start a run from the same
+weights.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree: Dict[str, np.ndarray], device
+                    ) -> Dict[str, torch.Tensor]:
+    """The reference MLP's parameter dict -> the port's, float32 tensors
+    on ``device`` in the reference's leaf order (b1, b2, w1, w2)."""
+    return {k: torch.tensor(np.asarray(tree[k], np.float32), device=device)
+            for k in sorted(tree)}
+
+
+def ef_mem_from_numpy(ef_mem: np.ndarray, device) -> torch.Tensor:
+    """(N, D) error-feedback memory -> float32 tensor on ``device``."""
+    return torch.tensor(np.asarray(ef_mem, np.float32), device=device)

@@ -1,0 +1,16 @@
+"""Device resolution for the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Without one, raise rather than carry on
+    silently on the CPU: a caller who wants the CPU says so."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device=\"cpu\" to run "
+                "on the CPU")
+        device = "cuda"
+    return torch.device(device)

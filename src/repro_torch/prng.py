@@ -1,0 +1,101 @@
+"""Counter-based PRNG: JAX's threefry2x32 on torch integer tensors.
+
+The round step draws all its randomness as one uniform block from
+``fold_in(PRNGKey(seed), t)``; reproducing ``jax.random`` bit for bit
+is what lets cohorts, batch indices and packet-loss masks match the
+JAX reference exactly. Keys are ``(2,)`` int64 tensors holding two
+uint32 words; every word-level operation is masked back to 32 bits.
+The recipes follow ``jax.random`` with ``jax_threefry_partitionable``:
+
+  * ``PRNGKey(s)``    = (0, s & 0xFFFFFFFF)
+  * ``fold_in(k, t)`` = threefry(k, (0, t))
+  * ``split(k)[i]``   = threefry(k, (0, i))
+  * ``uniform``       : bits[i] = a ^ b with (a, b) = threefry(k, (0, i)),
+                        mantissa-filled into [1, 2), shifted and scaled.
+  * ``normal``        : sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1)).
+                        ``erfinv`` is not bitwise JAX's, so normals match
+                        to a few ulps only.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
+    the key words ``(k0, k1)``. All operands are int64 tensors holding
+    uint32 values (keys may be 0-dim); returns two such tensors."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """(2,) int64 key from an integer seed: ``jax.random.PRNGKey`` in
+    JAX's default 32-bit mode, which keeps only the low 32 bits."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=device)
+
+
+def _hash_counters(key: torch.Tensor, n: int):
+    """threefry(key, (0, i)) for i in [0, n): the partitionable iota."""
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    return threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """Key derived from ``key`` and the integer ``data``."""
+    d = torch.tensor([int(data) & _MASK], dtype=torch.int64,
+                     device=key.device)
+    a, b = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+    return torch.cat([a, b])
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """(num, 2) new keys."""
+    a, b = _hash_counters(key, num)
+    return torch.stack([a, b], dim=1)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """uint32 random words (as int64) of the given shape."""
+    a, b = _hash_counters(key, math.prod(shape))
+    return (a ^ b).reshape(tuple(shape))
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval), bitwise ``jax.random.uniform``."""
+    bits = random_bits(key, shape)
+    # 23 random mantissa bits under the exponent of 1.0: a float in [1, 2)
+    fbits = (bits >> 9) | 0x3F800000
+    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """float32 standard normals (``jax.random.normal`` to a few ulps)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, minval=lo, maxval=1.0)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2.0)))
