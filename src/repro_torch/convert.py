@@ -1,9 +1,9 @@
 """Carry state across from the JAX reference.
 
-The reference's parameters and EF memory arrive as numpy arrays (the
-tests hand them over with ``np.asarray``); these helpers turn them into
-the port's tensors, so both packages can start a run from the same
-weights.
+The reference's parameters, EF memory and simulator state arrive as
+numpy arrays (the tests hand them over with ``np.asarray``); these
+helpers turn them into the port's tensors, so both packages can start
+a run from the same weights and state.
 """
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.netsim.state import NetSimState
 
 
 def params_from_jax(tree: Dict[str, np.ndarray], device
@@ -24,3 +26,16 @@ def params_from_jax(tree: Dict[str, np.ndarray], device
 def ef_mem_from_numpy(ef_mem: np.ndarray, device) -> torch.Tensor:
     """(N, D) error-feedback memory -> float32 tensor on ``device``."""
     return torch.tensor(np.asarray(ef_mem, np.float32), device=device)
+
+
+def net_state_from_jax(net, device) -> NetSimState:
+    """The reference's ``NetSimState`` (fields as numpy arrays) -> the
+    port's: int32 channel states, f32 log-bandwidth levels and downlink
+    states on ``device``, so a run can start from the reference's
+    simulator state."""
+    return NetSimState(
+        channel=torch.tensor(np.asarray(net.channel, np.int32),
+                             device=device),
+        logbw=torch.tensor(np.asarray(net.logbw, np.float32),
+                           device=device),
+        down=torch.tensor(np.asarray(net.down, np.int32), device=device))

@@ -6,7 +6,8 @@ simulated lossy (TRA) or reliable uploads, and the debiased aggregate
 fused with the error-feedback update in one kernel call — runs on the
 server's device. ``run`` steps blocks of rounds between evaluation
 boundaries; ``run_round`` runs the same step once per call, so the two
-paths give the same result.
+paths give the same result. ``run_grid`` runs a grid of same-shaped
+scenario configs as one batched step per round (``core/sweep.py``).
 
 Eligibility (the paper's comparison axis):
   "all"        every client eligible (TRA's fair selection)
@@ -16,7 +17,7 @@ Eligibility (the paper's comparison axis):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,9 +28,11 @@ from repro_torch.core.engine import RoundScanEngine
 from repro_torch.core.fairness import FairnessReport, fairness_report
 from repro_torch.core.mlp import mlp_accuracy, mlp_init
 from repro_torch.core.selection import SelectionConfig
+from repro_torch.core.sweep import SweepEngine
 from repro_torch.core.tra import TRAConfig
 from repro_torch.data.synthetic import FederatedDataset, padded_eval_set
 from repro_torch.device import resolve_device
+from repro_torch.netsim.config import NetSimConfig
 from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
                                        sample_networks)
 
@@ -37,8 +40,8 @@ from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
 @dataclasses.dataclass
 class FLConfig:
     """The reference's top-level run configuration. Sub-configs that
-    later slices bring (netsim, server modes, faults, defenses,
-    telemetry, recovery, loss budget) are not part of this slice."""
+    later slices bring (server modes, faults, defenses, telemetry,
+    recovery, loss budget) are not part of the port yet."""
     algo: str = "fedavg"              # fedavg|qfedavg (ported)
     n_rounds: int = 100
     clients_per_round: int = 10
@@ -51,6 +54,10 @@ class FLConfig:
     sel: SelectionConfig = dataclasses.field(
         default_factory=SelectionConfig)
     tra: TRAConfig = dataclasses.field(default_factory=TRAConfig)
+    # stateful network simulator: Gilbert-Elliott bursty loss, AR(1)
+    # bandwidth walk, deadline delivery (the default is the iid channel
+    # with both models off)
+    netsim: NetSimConfig = dataclasses.field(default_factory=NetSimConfig)
     # algorithm hyper-parameters (paper / source-code defaults)
     q: float = 1.0                    # q-FedAvg fairness exponent
     # q-FedAvg Lipschitz estimate (1.0 restores the paper's behaviour
@@ -119,6 +126,7 @@ class FederatedServer:
             threshold_mbps=cfg.tra.threshold_mbps)
         self.engine = RoundScanEngine(cfg, data, self.sufficient,
                                       elig.cpu().numpy(),
+                                      upload_mbps=self.nets.upload_mbps,
                                       packet_loss=self.nets.packet_loss,
                                       device=dev)
         if init_params is None:
@@ -175,3 +183,61 @@ class FederatedServer:
                                             self.eval_W)
         return fairness_report(acc.cpu().numpy(), n.cpu().numpy(),
                                correct.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# grid execution: S scenario configs -> one batched round step
+# ---------------------------------------------------------------------------
+def _stacked_eval_sets(datas: Sequence[FederatedDataset], device):
+    """Per-scenario padded eval sets, padded again to a common length
+    and stacked: (S, N, M, ...), the mask keeps the padding out."""
+    sets = [padded_eval_set(d) for d in datas]
+    M = max(x.shape[1] for x, _, _ in sets)
+
+    def _pad(a):
+        return np.pad(a, ((0, 0), (0, M - a.shape[1]))
+                      + ((0, 0),) * (a.ndim - 2))
+
+    return tuple(torch.from_numpy(np.stack([_pad(a[i]) for a in sets]))
+                 .to(device) for i in range(3))
+
+
+def run_grid(cfgs: Sequence[FLConfig], datas, nets=None, *, device=None,
+             init_params=None) -> List[List[RoundLog]]:
+    """Run a grid of same-shaped scenario configs as one batched round
+    step per round (``core/sweep.SweepEngine``) and demux per-scenario
+    histories.
+
+    Mirrors ``FederatedServer.run`` for each scenario: the same block
+    boundaries, the same evaluation schedule, fairness reports at
+    evaluation boundaries. ``datas`` / ``nets`` broadcast as in
+    ``SweepEngine.from_configs``. ``device`` None means the card (raises
+    without one); ``init_params`` is an optional list of S parameter
+    dicts in place of each scenario's seeded ``mlp_init``.
+    """
+    engine = SweepEngine.from_configs(cfgs, datas, nets, device=device)
+    cfg = engine.cfg
+    S = engine.n_scenarios
+    X, Y, W = _stacked_eval_sets([s.data for s in engine.scenarios],
+                                 engine.device)
+    eval_fn = torch.func.vmap(torch.func.vmap(mlp_accuracy,
+                                              in_dims=(None, 0, 0, 0)))
+    states = engine.init_states(init_params)
+    histories: List[List[RoundLog]] = [[] for _ in range(S)]
+    t = 0
+    while t < cfg.n_rounds:
+        t1 = min((t // cfg.eval_every + 1) * cfg.eval_every, cfg.n_rounds)
+        states, logs = engine.run_block(states, t, t1 - t)
+        for s in range(S):
+            for i in range(t1 - t):
+                histories[s].append(
+                    RoundLog(t + i, float(logs["loss"][s, i])))
+        if t1 % cfg.eval_every == 0 or t1 == cfg.n_rounds:
+            with torch.no_grad():
+                acc, correct, n = eval_fn(states.params, X, Y, W)
+            acc, correct, n = (a.cpu().numpy() for a in (acc, correct, n))
+            for s in range(S):
+                histories[s][-1].report = fairness_report(
+                    acc[s], n[s], correct[s])
+        t = t1
+    return histories

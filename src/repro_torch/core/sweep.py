@@ -1,0 +1,270 @@
+"""Multi-scenario sweep engine: a paper grid as one batched round step.
+
+A *scenario* is everything that may vary without changing the step's
+structure: the PRNG seed, the TRA loss rate, the eligibility and
+sufficiency masks, the dataset draw and the netsim knobs (burst length,
+emission rates, bandwidth correlation, deadline). ``SweepEngine``
+stacks S scenarios behind a leading axis: ``ScenarioCtx`` fields become
+(S, ...) tensors, per-scenario ``EngineState``s are stacked, and the
+data is one shared (N, M, D) set or a stacked (S, N, M, D) one.
+``torch.func.vmap`` over the SAME round step that ``RoundScanEngine``
+runs then plays every scenario's round at once: each PyTorch launch
+carries S scenarios' work, and the kernels batch through their ops'
+vmap rules — one batched uplink launch and one Gilbert–Elliott mask
+launch per round for the whole grid.
+
+Static structure (algorithm, debias mode, cohort size, local steps,
+batch size, TRA on/off, error feedback, netsim model selection) must be
+shared across a sweep; ``from_configs`` checks that and raises on a
+mixed grid.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.core import tra as tra_mod
+from repro_torch.core.engine import (CTX_NETSIM_FIELDS,
+                                     SWEEP_VARYING_FIELDS,
+                                     SWEEP_VARYING_NETSIM_FIELDS,
+                                     SWEEP_VARYING_SEL_FIELDS,
+                                     SWEEP_VARYING_TRA_FIELDS, EngineState,
+                                     ScenarioCtx, init_engine_state,
+                                     make_round_step, static_signature)
+from repro_torch.core.mlp import mlp_init
+from repro_torch.data.synthetic import (DeviceDataset, FederatedDataset,
+                                        stage_on_device,
+                                        stage_scenarios_on_device)
+from repro_torch.device import resolve_device
+from repro_torch.netsim.config import NetSimConfig
+from repro_torch.network.trace import (eligible_mask_device,
+                                       sample_networks,
+                                       stage_network_scenarios)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One cell of a paper grid (host-side description)."""
+    seed: int
+    loss_rate: float
+    sufficient: np.ndarray        # (N,) 0/1 sufficiency reports
+    eligible: np.ndarray          # (N,) bool selection mask
+    data: FederatedDataset        # this scenario's dataset draw
+    # this cell's netsim knobs (None -> the sweep config's cfg.netsim);
+    # the model selection must agree across a sweep
+    netsim: Optional[NetSimConfig] = None
+    # per-client trace draws, needed when tra.per_client_loss or a
+    # netsim bandwidth/deadline model is on
+    packet_loss: Optional[np.ndarray] = None   # (N,) drop rates
+    upload_mbps: Optional[np.ndarray] = None   # (N,) speeds
+
+
+def scenario_from_config(cfg, data: FederatedDataset,
+                         nets=None) -> Scenario:
+    """A Scenario derived the way ``FederatedServer`` derives its engine
+    inputs (same network draw from the scenario seed, same sufficiency
+    report and eligibility), so sweep cells match single runs."""
+    rng = np.random.default_rng(cfg.seed)
+    if nets is None:
+        nets = sample_networks(rng, data.n_clients)
+    sufficient = tra_mod.sufficiency_report(nets, cfg.tra.threshold_mbps)
+    eligible = eligible_mask_device(
+        torch.tensor(np.asarray(nets.upload_mbps), dtype=torch.float32),
+        cfg.selection, eligible_ratio=cfg.eligible_ratio,
+        threshold_mbps=cfg.tra.threshold_mbps).numpy()
+    return Scenario(seed=cfg.seed, loss_rate=cfg.tra.loss_rate,
+                    sufficient=sufficient, eligible=eligible, data=data,
+                    netsim=cfg.netsim, packet_loss=nets.packet_loss,
+                    upload_mbps=nets.upload_mbps)
+
+
+def _netsim_models(ns: NetSimConfig):
+    return (ns.channel, ns.bw_ar1, ns.deadline, ns.down_channel,
+            ns.down_fallback)
+
+
+class SweepEngine:
+    """Batched executor for S same-shaped scenarios.
+
+    Callers own the stacked ``EngineState`` and thread it through
+    ``run_block``; use the returned state. ``device`` None means the
+    card, and raises without one (pass ``device="cpu"`` for the CPU).
+    """
+
+    def __init__(self, cfg, scenarios: Sequence[Scenario], *, device=None):
+        if not scenarios:
+            raise ValueError("empty sweep")
+        self.device = dev = resolve_device(device)
+        self.cfg = cfg
+        self.scenarios = list(scenarios)
+        self.n_scenarios = len(self.scenarios)
+        if all(s.data is self.scenarios[0].data for s in self.scenarios):
+            # seed / rate grids usually share one dataset draw: stage it
+            # once and broadcast it through the vmap
+            self.dd = stage_on_device(self.scenarios[0].data, dev)
+        else:
+            self.dd = stage_scenarios_on_device(
+                [s.data for s in self.scenarios], dev)
+        # counts is (N,) when the dataset is shared, (S, N) when stacked
+        self.data_batched = self.dd.counts.dim() == 2
+        self.n_clients = int(self.dd.counts.shape[-1])
+        n_elig = [int(np.asarray(s.eligible).sum()) for s in self.scenarios]
+        if min(n_elig) == 0:
+            raise ValueError("a scenario has no eligible clients")
+        cohorts = {min(cfg.clients_per_round, ne) for ne in n_elig}
+        if len(cohorts) != 1:
+            # the cohort is a static shape
+            raise ValueError(f"scenarios disagree on cohort size: "
+                             f"{sorted(cohorts)}")
+        self.cohort = cohorts.pop()
+        nsims = self._nsims = [
+            s.netsim if s.netsim is not None else cfg.netsim
+            for s in self.scenarios]
+        for i, ns in enumerate(nsims):
+            if _netsim_models(ns) != _netsim_models(cfg.netsim):
+                raise ValueError(
+                    f"scenario {i} selects different netsim models than "
+                    f"the sweep config; only {SWEEP_VARYING_NETSIM_FIELDS}"
+                    f" may vary per cell")
+        if cfg.tra.per_client_loss:
+            if any(s.packet_loss is None for s in self.scenarios):
+                raise ValueError("tra.per_client_loss needs per-client "
+                                 "rates on every Scenario (packet_loss)")
+            loss_rate = np.stack([np.asarray(s.packet_loss, np.float32)
+                                  for s in self.scenarios])
+        else:
+            loss_rate = np.asarray([s.loss_rate for s in self.scenarios],
+                                   np.float32)
+        if (cfg.netsim.bw_ar1 or cfg.netsim.deadline) \
+                and any(s.upload_mbps is None for s in self.scenarios):
+            raise ValueError("netsim bandwidth/deadline models need "
+                             "per-client speeds on every Scenario "
+                             "(upload_mbps)")
+        self._step = make_round_step(cfg, self.cohort)   # validates cfg
+
+        def knob(f):
+            return torch.tensor([getattr(ns, f) for ns in nsims],
+                                dtype=torch.float32, device=dev)
+
+        self.ctx = ScenarioCtx(
+            base_key=torch.stack([prng.PRNGKey(s.seed, device=dev)
+                                  for s in self.scenarios]),
+            loss_rate=torch.tensor(loss_rate, device=dev),
+            eligible=torch.tensor(np.stack(
+                [np.asarray(s.eligible, bool) for s in self.scenarios]),
+                device=dev),
+            sufficient=torch.tensor(np.stack(
+                [np.asarray(s.sufficient, np.float32)
+                 for s in self.scenarios]), device=dev),
+            data=self.dd, **{f: knob(f) for f in CTX_NETSIM_FIELDS})
+        data_dim = 0 if self.data_batched else None
+        ctx_dims = ScenarioCtx(
+            base_key=0, loss_rate=0, eligible=0, sufficient=0,
+            data=DeviceDataset(data_dim, data_dim, data_dim),
+            **{f: 0 for f in CTX_NETSIM_FIELDS})
+        self._vstep = torch.func.vmap(self._step,
+                                      in_dims=(ctx_dims, 0, None))
+
+    @classmethod
+    def from_configs(cls, cfgs: Sequence, datas, nets=None, *,
+                     device=None) -> "SweepEngine":
+        """A sweep of S per-scenario configs. Seeds, loss rates,
+        eligibility and the netsim knobs may differ; the static
+        structure must agree, or this raises.
+
+        ``datas`` is one shared ``FederatedDataset`` or a length-S
+        sequence; ``nets`` one shared ``ClientNetworks``, a length-S
+        sequence, or None to sample from each scenario's seed (the
+        ``FederatedServer`` default)."""
+        cfgs = list(cfgs)
+        S = len(cfgs)
+        if S == 0:
+            raise ValueError("empty config grid")
+        sig0 = static_signature(cfgs[0])
+        for i, c in enumerate(cfgs[1:], 1):
+            if static_signature(c) != sig0:
+                raise ValueError(
+                    f"config {i} differs from config 0 in a static field; "
+                    f"only {SWEEP_VARYING_FIELDS}, tra."
+                    f"{SWEEP_VARYING_TRA_FIELDS}, netsim."
+                    f"{SWEEP_VARYING_NETSIM_FIELDS} and sel."
+                    f"{SWEEP_VARYING_SEL_FIELDS} may vary in one sweep")
+        if isinstance(datas, FederatedDataset):
+            datas = [datas] * S
+        if len(datas) != S:
+            raise ValueError(f"expected {S} datasets, got {len(datas)}")
+        if nets is None or not isinstance(nets, (list, tuple)):
+            nets = [nets] * S
+        if len(nets) != S:
+            raise ValueError(f"expected {S} networks, got {len(nets)}")
+        nets = [n if n is not None
+                else sample_networks(np.random.default_rng(c.seed),
+                                     d.n_clients)
+                for c, d, n in zip(cfgs, datas, nets)]
+        eligible = stage_network_scenarios(
+            nets, [c.selection for c in cfgs],
+            eligible_ratios=[c.eligible_ratio for c in cfgs],
+            thresholds_mbps=[c.tra.threshold_mbps for c in cfgs]).numpy()
+        scen = [Scenario(seed=c.seed, loss_rate=c.tra.loss_rate,
+                         sufficient=tra_mod.sufficiency_report(
+                             n, c.tra.threshold_mbps),
+                         eligible=eligible[i], data=d, netsim=c.netsim,
+                         packet_loss=n.packet_loss,
+                         upload_mbps=n.upload_mbps)
+                for i, (c, d, n) in enumerate(zip(cfgs, datas, nets))]
+        return cls(cfgs[0], scen, device=device)
+
+    # -- state --------------------------------------------------------------
+    def init_states(self, params=None) -> EngineState:
+        """Stacked per-scenario initial states. ``params`` is a list of
+        S parameter dicts (e.g. the reference's weights through
+        ``convert.params_from_jax``); None draws each scenario's
+        ``mlp_init(PRNGKey(seed))``, as ``FederatedServer`` does."""
+        dev = self.device
+        if params is None:
+            params = [mlp_init(prng.PRNGKey(s.seed, device=dev))
+                      for s in self.scenarios]
+        if len(params) != self.n_scenarios:
+            raise ValueError(f"expected {self.n_scenarios} parameter "
+                             f"sets, got {len(params)}")
+        states = [init_engine_state(
+            self.cfg, {k: v.to(dev) for k, v in p.items()}, self.n_clients,
+            base_key=self.ctx.base_key[i], loss_rate=self.ctx.loss_rate[i],
+            upload_mbps=s.upload_mbps, netsim=self._nsims[i])
+            for i, (s, p) in enumerate(zip(self.scenarios, params))]
+        return _stack_states(states)
+
+    # -- execution ----------------------------------------------------------
+    def run_block(self, states: EngineState, t0: int, k: int
+                  ) -> Tuple[EngineState, Dict[str, np.ndarray]]:
+        """Rounds [t0, t0+k) of all scenarios, one batched step per
+        round; logs come to the host once, demuxed scenario-major.
+        Returns (states, {"loss": (S, k), "ids": (S, k, C)[, "arrival":
+        (S, k, C)]})."""
+        logs: List[Dict[str, torch.Tensor]] = []
+        for t in range(t0, t0 + k):
+            states, lg = self._vstep(self.ctx, states, t)
+            logs.append(lg)
+        return states, {name: torch.stack([lg[name] for lg in logs], dim=1)
+                        .cpu().numpy() for name in logs[0]}
+
+    def run(self, n_rounds: Optional[int] = None, params=None
+            ) -> Tuple[EngineState, Dict[str, np.ndarray]]:
+        """Whole-grid convenience: init, then every round in one block."""
+        r = self.cfg.n_rounds if n_rounds is None else n_rounds
+        return self.run_block(self.init_states(params), 0, r)
+
+
+def _stack_states(states: Sequence[EngineState]) -> EngineState:
+    s0 = states[0]
+    return EngineState(
+        params={k: torch.stack([s.params[k] for s in states])
+                for k in s0.params},
+        ef_mem=torch.stack([s.ef_mem for s in states]),
+        lam=torch.stack([s.lam for s in states]),
+        net=type(s0.net)(*(torch.stack(list(f)) for f in
+                           zip(*(s.net for s in states)))))

@@ -1,7 +1,8 @@
 // Fused TRA uplink step for Hopper (sm_90a), written by hand in CUDA C++.
 //
-// Replaces: repro/kernels/uplink_fused/uplink_fused.py::uplink_fused_call,
-// the Pallas TPU megakernel (its body is _body, uplink_fused.py:88).
+// Replaces: repro/kernels/uplink_fused/uplink_fused.py::uplink_fused_call
+// and ::uplink_fused_batched_call, the Pallas TPU megakernel (its body is
+// _body, uplink_fused.py:88) and its scenario-batched grid.
 //
 // For a cohort of C clients whose uploads are viewed as (C, P, F) packets,
 // with delivery masks m (C, P), pre-folded debias scales q (C,) and either
@@ -36,6 +37,13 @@
 // Beyond that single pass the design does nothing about the launch cost
 // yet: vectorised loads, a split-C second pass for large C and more CTAs
 // than P are later work.
+//
+// Scenario batching: a sweep stacks S scenarios' cohorts as (S, C, P, F)
+// with per-scenario masks, scales and denominators. blockIdx.y is the
+// scenario; each CTA offsets its pointers to its scenario and then does
+// exactly what a single-scenario CTA does, in the same order, so one
+// batched launch is bitwise equal to S single launches. A single call is
+// the launch with S = 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,6 +97,17 @@ __global__ void uplink_fused_kernel(const T* __restrict__ x,
   float* acc = smem;      // (F,) numerator of this packet row
   float* red = smem + F;  // (32,) block-reduction scratch
   const int p = blockIdx.x;
+  const size_t sc = blockIdx.y;  // scenario
+  x += sc * C * P * F;
+  if (ef != nullptr) {
+    ef += sc * C * P * F;
+    ef_out += sc * C * P * F;
+  }
+  m += sc * C * P;
+  q += sc * C;
+  w_or_den += per_coord ? sc * C : sc;
+  agg += sc * P * F;
+  if (ssq != nullptr) ssq += sc * C * P;
   for (int f = threadIdx.x; f < F; f += blockDim.x) acc[f] = 0.f;
   float den = 0.f;
   for (int c = 0; c < C; ++c) {
@@ -121,17 +140,19 @@ __global__ void uplink_fused_kernel(const T* __restrict__ x,
 
 extern "C" {
 
-// Launches one fused uplink step on `stream`. ef/ef_out are both null or
-// both set; ssq may be null. Returns cudaGetLastError() after the launch.
+// Launches the fused uplink step of S scenarios on `stream`, one CTA per
+// (packet row, scenario). ef/ef_out are both null or both set; ssq may be
+// null. Returns cudaGetLastError() after the launch.
 int uplink_fused_launch(const void* x, const void* ef, const void* m,
                         const void* q, const void* w_or_den, void* agg,
-                        void* ef_out, void* ssq, int C, int P, int F,
+                        void* ef_out, void* ssq, int S, int C, int P, int F,
                         int is_bf16, int per_coord, float eps, int device,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int threads = F < 256 ? F : 256;
   const size_t smem = (size_t)(F + 32) * sizeof(float);
+  const dim3 grid(P, S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mf = static_cast<const float*>(m);
   const float* qf = static_cast<const float*>(q);
@@ -140,11 +161,11 @@ int uplink_fused_launch(const void* x, const void* ef, const void* m,
   float* ssqf = static_cast<float*>(ssq);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    uplink_fused_kernel<T><<<P, threads, smem, s>>>(
+    uplink_fused_kernel<T><<<grid, threads, smem, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(ef), mf, qf, wd, aggf,
         static_cast<T*>(ef_out), ssqf, C, P, F, per_coord, eps);
   } else {
-    uplink_fused_kernel<float><<<P, threads, smem, s>>>(
+    uplink_fused_kernel<float><<<grid, threads, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(ef), mf, qf,
         wd, aggf, static_cast<float*>(ef_out), ssqf, C, P, F, per_coord,
         eps);

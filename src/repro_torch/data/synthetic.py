@@ -15,7 +15,7 @@ tensors on the round engine's device.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,17 +24,17 @@ D_FEAT = 60
 N_CLASSES = 10
 
 
-@dataclasses.dataclass(frozen=True)
-class DeviceDataset:
+class DeviceDataset(NamedTuple):
     """Every client's train set zero-padded to a common length, so a
-    round gathers fixed-shape minibatches with per-client bounds."""
-    train_x: torch.Tensor   # (N, M, D_FEAT) float32
-    train_y: torch.Tensor   # (N, M) int32
-    counts: torch.Tensor    # (N,) int32 true samples per client
+    round gathers fixed-shape minibatches with per-client bounds. A
+    named tuple, so ``torch.func.vmap`` can map over a stacked one."""
+    train_x: torch.Tensor   # ([S,] N, M, D_FEAT) float32
+    train_y: torch.Tensor   # ([S,] N, M) int32
+    counts: torch.Tensor    # ([S,] N) int32 true samples per client
 
     @property
     def n_clients(self) -> int:
-        return int(self.counts.shape[0])
+        return int(self.counts.shape[-1])
 
 
 @dataclasses.dataclass
@@ -69,6 +69,35 @@ def stage_on_device(data: FederatedDataset, device) -> DeviceDataset:
     return DeviceDataset(torch.from_numpy(X).to(device),
                          torch.from_numpy(Y).to(device),
                          torch.from_numpy(counts.astype(np.int32)).to(device))
+
+
+def stage_scenarios_on_device(datasets: Sequence[FederatedDataset],
+                              device) -> DeviceDataset:
+    """S scenarios' datasets stacked behind a leading scenario axis on
+    ``device``, for the sweep engine: train_x (S, N, M, D_FEAT), train_y
+    (S, N, M), counts (S, N). All hold N clients; sets are padded to
+    the longest across all scenarios. Padding is never sampled, so each
+    scenario computes what its own staging would."""
+    if not datasets:
+        raise ValueError("no scenario datasets")
+    n_set = {d.n_clients for d in datasets}
+    if len(n_set) != 1:
+        raise ValueError(f"scenario client counts differ: {sorted(n_set)}")
+    N = n_set.pop()
+    S = len(datasets)
+    M = max(int(d.samples_per_client.max()) for d in datasets)
+    X = np.zeros((S, N, M, D_FEAT), np.float32)
+    Y = np.zeros((S, N, M), np.int32)
+    counts = np.zeros((S, N), np.int32)
+    for s, d in enumerate(datasets):
+        for k in range(N):
+            n = len(d.train_x[k])
+            X[s, k, :n] = d.train_x[k]
+            Y[s, k, :n] = d.train_y[k]
+            counts[s, k] = n
+    return DeviceDataset(torch.from_numpy(X).to(device),
+                         torch.from_numpy(Y).to(device),
+                         torch.from_numpy(counts).to(device))
 
 
 def generate_synthetic(rng: np.random.Generator, n_clients: int = 30,

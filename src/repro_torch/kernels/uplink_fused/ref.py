@@ -20,17 +20,20 @@ def uplink_ref(x, m, q, w_or_den, *, ef=None, want_ssq=False,
     when ``per_coord``, else the ready scalar denominator ().
 
     Returns (agg (P, F) f32, ef_out (C, P, F) f32 | None, ssq (C,) | None).
+    Every operand may carry a leading scenario axis S (the batched
+    kernel's plain version); each scenario's results are then its own.
     """
     x = x.float()
     if ef is not None:
         x = x + ef.float()
-    wm = m * q[:, None]
-    num = torch.einsum("cpf,cp->pf", x, wm)
+    wm = m * q[..., None]
+    num = torch.einsum("...cpf,...cp->...pf", x, wm)
     if per_coord:
-        den = torch.clamp((m * w_or_den[:, None]).sum(0), min=eps)[:, None]
+        den = torch.clamp((m * w_or_den[..., None]).sum(-2),
+                          min=eps)[..., None]
     else:
-        den = w_or_den
+        den = w_or_den[..., None, None]
     agg = num / den
-    ef_out = x * (1.0 - m[:, :, None]) if ef is not None else None
+    ef_out = x * (1.0 - m[..., None]) if ef is not None else None
     ssq = ((x * x).sum(-1) * m).sum(-1) if want_ssq else None
     return agg, ef_out, ssq

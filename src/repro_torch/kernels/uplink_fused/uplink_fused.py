@@ -1,10 +1,12 @@
 """Binding of the Hopper uplink megakernel (``csrc/uplink_fused.cu``).
 
-``uplink_fused_call`` launches the CUDA kernel on tensors that lie on
-the card and raises on anything else: there is no fallback here. The
+``uplink_fused_call`` (one scenario) and ``uplink_fused_batched_call``
+(S scenarios in one launch) launch the CUDA kernel on tensors that lie
+on the card and raise on anything else: there is no fallback here. The
 choice between the kernel and its plain version (``ref.py``) is made by
-``ops.uplink_round``, by the device of its input alone.
-``LAUNCHES`` counts the kernel launches of this process.
+the ``repro_torch::uplink_fused`` ops in ``ops.py``, by device alone.
+``LAUNCHES`` and ``BATCHED_LAUNCHES`` count the launches of this
+process through each entry.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import DENOM_EPS
 
 LAUNCHES = 0
+BATCHED_LAUNCHES = 0
 
 _MAX_SMEM = 48 * 1024      # shared memory a CTA gets without an opt-in
 
@@ -27,7 +30,7 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.uplink_fused_launch.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+        i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.uplink_fused_launch.restype = i32
     lib.uplink_fused_error_string.argtypes = [i32]
     lib.uplink_fused_error_string.restype = ctypes.c_char_p
@@ -46,9 +49,61 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _launch(x, m, q, w_or_den, ef, want_ssq, per_coord, *, batched):
+    """Check the (S, C, P, F) operands and launch the kernel once,
+    counted under the entry that asked for it."""
+    global LAUNCHES, BATCHED_LAUNCHES
+    S, C, P, F = x.shape
+    dev = x.device
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
+    if F % 32 or (F + 32) * 4 > _MAX_SMEM or P == 0 or S == 0:
+        raise ValueError(f"unsupported packet shape S={S}, P={P}, F={F}: "
+                         f"S, P > 0 and F a multiple of 32 up to "
+                         f"{_MAX_SMEM // 4 - 32}")
+    if S > 65535:
+        raise ValueError(f"at most 65535 scenarios in one launch, not {S}")
+    _check("x", x, (S, C, P, F), x.dtype, dev)
+    if ef is not None:
+        _check("ef", ef, (S, C, P, F), x.dtype, dev)
+    _check("m", m, (S, C, P), torch.float32, dev)
+    _check("q", q, (S, C), torch.float32, dev)
+    _check("w_or_den", w_or_den, (S, C) if per_coord else (S,),
+           torch.float32, dev)
+
+    agg = torch.empty((S, P, F), dtype=torch.float32, device=dev)
+    ef_out = torch.empty_like(x) if ef is not None else None
+    ssq = torch.empty((S, C, P), dtype=torch.float32, device=dev) \
+        if want_ssq else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if batched:
+        BATCHED_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    err = lib.uplink_fused_launch(
+        ptr(x), ptr(ef), ptr(m), ptr(q), ptr(w_or_den), ptr(agg),
+        ptr(ef_out), ptr(ssq), S, C, P, F, int(x.dtype == torch.bfloat16),
+        int(per_coord), DENOM_EPS, dev.index, stream)
+    if err:
+        raise RuntimeError("uplink_fused kernel launch failed: "
+                           + lib.uplink_fused_error_string(err).decode())
+    return agg, ef_out, ssq
+
+
+def _require_cuda(x, name):
+    if not x.is_cuda:
+        raise ValueError(f"{name} runs on CUDA tensors only; the plain "
+                         f"version is ref.uplink_ref")
+
+
 def uplink_fused_call(x, m, q, w_or_den, *, ef=None, want_ssq=False,
                       per_coord: bool):
-    """One launch of the fused uplink kernel.
+    """One launch of the fused uplink kernel for one scenario.
 
     x: (C, P, F) packetised unmasked uploads on the card, float32 or
     bfloat16 (the stream dtype), F a multiple of 32; ef: matching tensor
@@ -60,44 +115,27 @@ def uplink_fused_call(x, m, q, w_or_den, *, ef=None, want_ssq=False,
     ssq (C, P) f32 per-packet partials | None: sum over P for the
     masked squared norms).
     """
-    global LAUNCHES
-    if not x.is_cuda:
-        raise ValueError("uplink_fused_call runs on CUDA tensors only; "
-                         "the plain version is ref.uplink_ref")
+    _require_cuda(x, "uplink_fused_call")
     if x.dim() != 3:
         raise ValueError(f"x must be (C, P, F), not {tuple(x.shape)}")
-    C, P, F = x.shape
-    dev = x.device
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
-    if F % 32 or (F + 32) * 4 > _MAX_SMEM or P == 0:
-        raise ValueError(f"unsupported packet shape P={P}, F={F}: P > 0 "
-                         f"and F a multiple of 32 up to "
-                         f"{_MAX_SMEM // 4 - 32}")
-    _check("x", x, (C, P, F), x.dtype, dev)
-    if ef is not None:
-        _check("ef", ef, (C, P, F), x.dtype, dev)
-    _check("m", m, (C, P), torch.float32, dev)
-    _check("q", q, (C,), torch.float32, dev)
-    _check("w_or_den", w_or_den, (C,) if per_coord else (), torch.float32,
-           dev)
+    agg, ef_out, ssq = _launch(
+        x[None], m[None], q[None], w_or_den[None], None if ef is None
+        else ef[None], want_ssq, per_coord, batched=False)
+    return agg[0], None if ef_out is None else ef_out[0], \
+        None if ssq is None else ssq[0]
 
-    agg = torch.empty((P, F), dtype=torch.float32, device=dev)
-    ef_out = torch.empty_like(x) if ef is not None else None
-    ssq = torch.empty((C, P), dtype=torch.float32, device=dev) \
-        if want_ssq else None
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+def uplink_fused_batched_call(x, m, q, w_or_den, *, ef=None,
+                              want_ssq=False, per_coord: bool):
+    """One launch of the fused uplink kernel for S scenarios: the
+    operands of ``uplink_fused_call`` with a leading S (``w_or_den`` is
+    (S, C) when ``per_coord``, else (S,) ready denominators).
 
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    LAUNCHES += 1
-    err = lib.uplink_fused_launch(
-        ptr(x), ptr(ef), ptr(m), ptr(q), ptr(w_or_den), ptr(agg),
-        ptr(ef_out), ptr(ssq), C, P, F, int(x.dtype == torch.bfloat16),
-        int(per_coord), DENOM_EPS, dev.index, stream)
-    if err:
-        raise RuntimeError("uplink_fused kernel launch failed: "
-                           + lib.uplink_fused_error_string(err).decode())
-    return agg, ef_out, ssq
+    Returns (agg (S, P, F) f32, ef_out (S, C, P, F) | None, ssq
+    (S, C, P) partials | None), bitwise equal to S single calls.
+    """
+    _require_cuda(x, "uplink_fused_batched_call")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (S, C, P, F), not {tuple(x.shape)}")
+    return _launch(x, m, q, w_or_den, ef, want_ssq, per_coord,
+                   batched=True)

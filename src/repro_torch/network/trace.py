@@ -72,3 +72,49 @@ def eligible_mask_device(upload_mbps: torch.Tensor, selection: str, *,
         mask[order[:k]] = True
         return mask
     raise ValueError(selection)
+
+
+def stage_network_scenarios(nets_list, selections, *, eligible_ratios=1.0,
+                            thresholds_mbps=DEFAULT_THRESHOLD_MBPS,
+                            device=None) -> torch.Tensor:
+    """(S, N) bool eligibility masks of S scenarios, on ``device``, for
+    the sweep engine. ``selections`` / ``eligible_ratios`` /
+    ``thresholds_mbps`` are scalars (broadcast) or length-S sequences.
+    Each row is ``eligible_mask_device`` of that scenario's policy."""
+    S = len(nets_list)
+
+    def _bcast(v):
+        if isinstance(v, (list, tuple)):
+            if len(v) != S:
+                raise ValueError(f"expected {S} per-scenario values, "
+                                 f"got {len(v)}")
+            return list(v)
+        return [v] * S
+
+    rows = [eligible_mask_device(
+        torch.tensor(np.asarray(nets.upload_mbps), dtype=torch.float32,
+                     device=device), sel, eligible_ratio=r,
+        threshold_mbps=th)
+        for nets, sel, r, th in zip(nets_list, _bcast(selections),
+                                    _bcast(eligible_ratios),
+                                    _bcast(thresholds_mbps))]
+    return torch.stack(rows)
+
+
+def log_upload_speeds(upload_mbps, device=None) -> torch.Tensor:
+    """(N,) f32 log upload speeds: the initial levels of the netsim
+    AR(1) bandwidth walk."""
+    return torch.log(torch.as_tensor(np.asarray(upload_mbps, np.float32),
+                                     device=device))
+
+
+def ar1_logspeed_step(logbw, rho, eps, mu: float = SPEED_MU,
+                      sigma: float = SPEED_SIGMA) -> torch.Tensor:
+    """One round of the stationarity-preserving AR(1) on log upload
+    speed: ``logbw`` (N,) levels, ``eps`` (N,) standard normals, ``rho``
+    the round-to-round correlation. The innovation is scaled by
+    ``sigma * sqrt(1 - rho^2)``, so N(mu, sigma^2) stays the stationary
+    law for every rho. The reference's expression, in float32."""
+    rho = torch.as_tensor(rho, dtype=torch.float32)
+    innov = sigma * torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0))
+    return mu + rho * (logbw - mu) + innov * eps

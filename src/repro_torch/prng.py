@@ -10,8 +10,9 @@ The recipes follow ``jax.random`` with ``jax_threefry_partitionable``:
   * ``PRNGKey(s)``    = (0, s & 0xFFFFFFFF)
   * ``fold_in(k, t)`` = threefry(k, (0, t))
   * ``split(k)[i]``   = threefry(k, (0, i))
-  * ``uniform``       : bits[i] = a ^ b with (a, b) = threefry(k, (0, i)),
-                        mantissa-filled into [1, 2), shifted and scaled.
+  * ``uniform``       : bits[i] = a ^ b with (a, b) = threefry(k, (0, i));
+                        the top 23 bits scaled into [0, 1), shifted and
+                        scaled.
   * ``normal``        : sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1)).
                         ``erfinv`` is not bitwise JAX's, so normals match
                         to a few ulps only.
@@ -86,9 +87,10 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 uniforms in [minval, maxval), bitwise ``jax.random.uniform``."""
     bits = random_bits(key, shape)
-    # 23 random mantissa bits under the exponent of 1.0: a float in [1, 2)
-    fbits = (bits >> 9) | 0x3F800000
-    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    # JAX puts 23 random mantissa bits under the exponent of 1.0 and
+    # subtracts 1: m * 2**-23 for the 23-bit integer m, which float32
+    # holds exactly. (An integer-to-float bit-cast has no vmap rule.)
+    floats = (bits >> 9).to(torch.float32) * 2.0 ** -23
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)

@@ -7,7 +7,10 @@ On the CPU the port's ``uplink_round`` runs its plain version
 P=16, F=32 with a partial last packet. Tolerances: agg rtol 2e-5 /
 atol 1e-6 (the reference's own kernel-vs-oracle tolerance; the einsum
 sums in another order), EF rows bitwise (element-wise, one rounding),
-ssq rtol 1e-5. The CUDA kernel's own tests need a card and skip here.
+ssq rtol 1e-5. The scenario-batched entry is held against the
+reference's ``uplink_round_scenarios`` at the same tolerances and
+against S single calls bitwise. The CUDA kernel's own tests are in
+tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +22,6 @@ from repro_torch.core.tra import DEBIAS_MODES
 from repro_torch.kernels.common import DENOM_EPS, RATE_EPS
 from repro_torch.kernels.uplink_fused import ops as t_ops
 from repro_torch.kernels.uplink_fused import uplink_fused as t_uf
-from repro_torch.kernels.uplink_fused.ref import uplink_ref
 
 C, P, F = 6, 16, 32
 D_UP = P * F - 11                       # partial last packet
@@ -134,37 +136,78 @@ def test_kernel_wrapper_refuses_cpu_tensors(case):
                                per_coord=False)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
+S = 3
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.fixture(scope="module")
+def scenarios():
+    """S scenarios of the case's shape, each with its own inputs."""
+    rng = np.random.default_rng(11)
+    flat = rng.normal(size=(S, C, D_UP)).astype(np.float32)
+    xp = np.pad(flat, ((0, 0), (0, 0), (0, PAD))).reshape(S, C, P, F)
+    mask = (rng.random((S, C, P)) > 0.4).astype(np.float32)
+    pcnt = np.full((P,), F, np.float32)
+    pcnt[-1] = F - PAD
+    return dict(
+        xp=xp, ef=rng.normal(size=(S, C, D_UP)).astype(np.float32),
+        mask=mask, w=(rng.random((S, C)) + 0.1).astype(np.float32),
+        suff=(rng.random((S, C)) > 0.5).astype(np.float32),
+        mult=(rng.random((S, C)) + 0.5).astype(np.float32),
+        kept=((mask @ pcnt) / np.float32(D_UP)).astype(np.float32),
+        lr=np.array([0.1, 0.3, 0.5], np.float32))
+
+
+def _scen_kw(sc, lib, use_ef, want_ssq, mode):
+    return dict(mode=mode, d_up=D_UP,
+                ef_rows=lib(sc["ef"]) if use_ef else None,
+                kept=lib(sc["kept"]), sufficient=lib(sc["suff"]),
+                loss_rate=lib(sc["lr"]), mult=lib(sc["mult"]),
+                want_ssq=want_ssq)
+
+
 @pytest.mark.parametrize("mode", DEBIAS_MODES)
 @pytest.mark.parametrize("use_ef", [False, True])
-def test_cuda_kernel_matches_plain(case, cuda_device, dtype, mode, use_ef):
-    """The CUDA kernel against its plain version on the card: agg rtol
-    1e-5 / atol 1e-6 (its fp32 client loop sums in another order), EF
-    bitwise in the stream dtype, ssq rtol 1e-5."""
-    t = {k: torch.tensor(v, device=cuda_device) for k, v in case.items()}
-    q = t_ops.debias_client_scale(t["w"], mode=mode, kept=t["kept"],
-                                  sufficient=t["suff"], loss_rate=t["lr"],
-                                  mult=t["mult"])
-    per_coord = mode == "per_coord_count"
-    wd = t["w"] if per_coord else torch.clamp(t["w"].sum(), min=DENOM_EPS)
-    x = t["xp"].to(dtype)
-    ef = t_ops._pack_rows(t["ef"], P, F).to(dtype) if use_ef else None
-    before = t_uf.LAUNCHES
-    agg, ef_out, ssq = t_uf.uplink_fused_call(
-        x, t["mask"], q, wd, ef=ef, want_ssq=True, per_coord=per_coord)
-    torch.cuda.synchronize()
-    assert t_uf.LAUNCHES == before + 1
-    r_agg, r_ef, r_ssq = uplink_ref(x, t["mask"], q, wd, ef=ef,
-                                    want_ssq=True, per_coord=per_coord)
-    torch.testing.assert_close(agg, r_agg, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(ssq.sum(-1), r_ssq, rtol=1e-5, atol=0.0)
+@pytest.mark.parametrize("want_ssq", [False, True])
+def test_uplink_round_scenarios_matches_reference(scenarios, mode, use_ef,
+                                                  want_ssq):
+    """The batched plain path (the op's vmap rule on the CPU) against the
+    reference's batched entry, and bitwise against S single calls."""
+    sc = scenarios
+    before = (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES)
+    a1, e1, s1 = t_ops.uplink_round_scenarios(
+        torch.tensor(sc["xp"]), torch.tensor(sc["mask"]),
+        torch.tensor(sc["w"]),
+        **_scen_kw(sc, torch.tensor, use_ef, want_ssq, mode))
+    assert (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES) == before
+    a0, e0, s0 = j_ops.uplink_round_scenarios(
+        jnp.asarray(sc["xp"]), jnp.asarray(sc["mask"]), jnp.asarray(sc["w"]),
+        impl="ref", **_scen_kw(sc, jnp.asarray, use_ef, want_ssq, mode))
+    assert tuple(a1.shape) == (S, D_UP)
+    np.testing.assert_allclose(a1.numpy(), np.asarray(a0), rtol=2e-5,
+                               atol=1e-6)
     if use_ef:
-        assert torch.equal(ef_out, r_ef.to(dtype))
+        np.testing.assert_array_equal(e1.numpy(), np.asarray(e0))
+    else:
+        assert e1 is None
+    if want_ssq:
+        np.testing.assert_allclose(s1.numpy(), np.asarray(s0), rtol=1e-5)
+    else:
+        assert s1 is None
+    for i in range(S):
+        one = {k: torch.tensor(v[i]) for k, v in sc.items()}
+        a, e, q = t_ops.uplink_round(
+            one["xp"], one["mask"], one["w"],
+            **_scen_kw(one, lambda v: v, use_ef, want_ssq, mode))
+        assert torch.equal(a, a1[i])
+        if use_ef:
+            assert torch.equal(e, e1[i])
+        if want_ssq:
+            assert torch.equal(q, s1[i])
+
+
+def test_batched_wrapper_refuses_cpu_tensors(scenarios):
+    x = torch.tensor(scenarios["xp"])
+    with pytest.raises(ValueError, match="CUDA"):
+        t_uf.uplink_fused_batched_call(
+            x, torch.tensor(scenarios["mask"]), torch.tensor(scenarios["w"]),
+            torch.ones(S), per_coord=False)
