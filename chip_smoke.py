@@ -8,10 +8,11 @@ toolkit:
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the main
-paths (the quickstart's federated rounds, and the paper's bursty-loss
-grid as one scenario-batched sweep) through the kernels, compares the
-card's runs with the CPU's, times the kernels, and ends with a one-line
-JSON verdict. Any failed check exits non-zero; with no card it exits
+paths (the quickstart's federated rounds, the paper's bursty-loss grid
+as one scenario-batched sweep, and the corruption-tolerance grid of
+fault rate x defense) through the kernels, compares the card's runs
+with the CPU's, times the kernels, and ends with a one-line JSON
+verdict. Any failed check exits non-zero; with no card it exits
 non-zero at once and prints no result.
 
 Phases:
@@ -38,10 +39,26 @@ Phases:
                 rounds; and the bursty grid for 5 rounds on the card
                 and on the CPU: equal cohorts and channel states, and
                 each round from the CPU's state at the parity tolerances
-  6. timings    each kernel, its plain version and the library call
-                (CUDA events, median of 100 after warm-up), device time
-                from torch.profiler, the bound; and profiles of
-                quickstart rounds and of grid rounds
+  6. faults     robust_agg vs robust_ref with NaN and Inf planted: every
+                debias mode x {gates off, screen + clip 5 + trim} x EF at
+                the fault recipe's shape and a tiling shape;
+                robust_agg_batched the same with per-scenario gates at
+                S=9 and a tiling shape, and bitwise against S single
+                launches; with the gates off, robust_agg bitwise against
+                uplink_fused. Then the docs/EXPERIMENTS.md fault grid
+                (clean, faulted undefended, faulted defended; 40 rounds,
+                N=20, C=12) through SweepEngine with the counts set to 0
+                just before and read just after, holding the reference's
+                headline; the same cells x 3 seeds through run_grid; the
+                defended cell alone through FederatedServer; and the
+                3-cell grid for 5 rounds on the card and on the CPU:
+                equal cohorts and quarantine counts, and each round from
+                the CPU's state at the parity tolerances
+  7. timings    each kernel, its plain version and the library call
+                (CUDA events, median of 100 after warm-up, 20 at the
+                tiling shapes of robust_agg), device time from
+                torch.profiler, the bound; and profiles of quickstart
+                rounds, of grid rounds and of defended grid rounds
 """
 from __future__ import annotations
 
@@ -62,20 +79,29 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.core.mlp import mlp_weighted_loss  # noqa: E402
 from repro_torch.core.server import (FederatedServer, FLConfig,  # noqa: E402
                                      run_grid)
 from repro_torch.core.sweep import SweepEngine  # noqa: E402
 from repro_torch.core.tra import DEBIAS_MODES, TRAConfig  # noqa: E402
-from repro_torch.data.synthetic import generate_synthetic  # noqa: E402
+from repro_torch.data.synthetic import (generate_synthetic,  # noqa: E402
+                                        stage_on_device)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import DENOM_EPS  # noqa: E402
 from repro_torch.kernels.netsim_mask import netsim_mask as nm  # noqa: E402
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref  # noqa: E402
+from repro_torch.kernels.robust_agg import robust_agg as ra  # noqa: E402
+from repro_torch.kernels.robust_agg.ops import robust_prepass  # noqa: E402
+from repro_torch.kernels.robust_agg.ref import robust_ref  # noqa: E402
 from repro_torch.kernels.uplink_fused import uplink_fused as uf  # noqa: E402
 from repro_torch.kernels.uplink_fused import ops as uplink_ops  # noqa: E402
 from repro_torch.kernels.uplink_fused.ref import uplink_ref  # noqa: E402
 from repro_torch.netsim.config import NetSimConfig  # noqa: E402
-from repro_torch.network.trace import sample_networks  # noqa: E402
+from repro_torch.netsim.faults import (CLIP_OFF, DefenseConfig,  # noqa: E402
+                                       FaultConfig)
+from repro_torch.network.trace import (ClientNetworks,  # noqa: E402
+                                       sample_networks)
+from repro_torch.utils.guards import assert_finite_tree  # noqa: E402
 
 # H100 SXM HBM3 rate (NVIDIA data sheet); the byte bound divides by it
 HBM_BYTES_PER_S = 3.35e12
@@ -91,6 +117,12 @@ PARITY_ROUNDS = 5
 GRID_ROUNDS = 60
 SEQ_ROUNDS = 10
 QFED_GRID_ROUNDS = 20
+ROBUST_SHAPE = (12, 36, 256)    # C, P, F of the fault recipe's round
+ROBUST_TILE_SHAPE = (64, 1024, 256)
+ROBUST_GRID_SHAPE = (9, 12, 36, 256)   # S = 3 cells x 3 seeds
+ROBUST_GRID_TILE_SHAPE = (8, 64, 1024, 256)
+TRIM_K = 2
+FAULT_ROUNDS = 40
 
 
 def fail(msg: str) -> None:
@@ -100,12 +132,20 @@ def fail(msg: str) -> None:
 
 def zero_counts():
     uf.LAUNCHES = uf.BATCHED_LAUNCHES = nm.LAUNCHES = 0
+    ra.LAUNCHES = ra.BATCHED_LAUNCHES = 0
 
 
 def counts():
     return {"uplink_fused": uf.LAUNCHES,
             "uplink_fused_batched": uf.BATCHED_LAUNCHES,
-            "netsim_mask": nm.LAUNCHES}
+            "netsim_mask": nm.LAUNCHES,
+            "robust_agg": ra.LAUNCHES,
+            "robust_agg_batched": ra.BATCHED_LAUNCHES}
+
+
+def expect(**launches):
+    """The counts a run should leave: the given ones, 0 for the rest."""
+    return {**{k: 0 for k in counts()}, **launches}
 
 
 def card_line() -> str:
@@ -369,8 +409,7 @@ def run_main_path(card):
               f"launches={uf.LAUNCHES - before} | {card}", flush=True)
     got = counts()
     launches = got["uplink_fused"]
-    if got != {"uplink_fused": 3 * ROUNDS, "uplink_fused_batched": 0,
-               "netsim_mask": 0}:
+    if got != expect(uplink_fused=3 * ROUNDS):
         fail(f"quickstart launches {got}, expected {3 * ROUNDS} single "
              f"uplink launches and no other")
     # the quickstart's own check: TRA lifts the worst clients
@@ -455,7 +494,8 @@ def to_device(states, dev):
     return type(states)(
         params={k: v.to(dev) for k, v in states.params.items()},
         ef_mem=states.ef_mem.to(dev), lam=states.lam.to(dev),
-        net=type(states.net)(*(f.to(dev) for f in states.net)))
+        net=type(states.net)(*(f.to(dev) for f in states.net)),
+        echo_mem=states.echo_mem.to(dev), rep_mem=states.rep_mem.to(dev))
 
 
 def check_grid_card_vs_cpu(data, n_cells):
@@ -521,8 +561,7 @@ def run_grid_phase(card):
     secs = time.perf_counter() - t0
     got = counts()
     check_histories("bursty grid", hists, GRID_ROUNDS, len(cfgs))
-    want = {"uplink_fused": 0, "uplink_fused_batched": GRID_ROUNDS,
-            "netsim_mask": GRID_ROUNDS}
+    want = expect(uplink_fused_batched=GRID_ROUNDS, netsim_mask=GRID_ROUNDS)
     if got != want:
         fail(f"bursty grid launches {got}, expected {want}")
     grid_rate = len(cfgs) * GRID_ROUNDS / secs
@@ -559,9 +598,7 @@ def run_grid_phase(card):
     torch.cuda.synchronize()
     qsecs = time.perf_counter() - t0
     check_histories("q-FedAvg grid", qh, QFED_GRID_ROUNDS, len(qcfgs))
-    if counts() != {"uplink_fused": 0,
-                    "uplink_fused_batched": QFED_GRID_ROUNDS,
-                    "netsim_mask": 0}:
+    if counts() != expect(uplink_fused_batched=QFED_GRID_ROUNDS):
         fail(f"q-FedAvg grid launches {counts()}")
     print(f"[grid] q-FedAvg iid grid, {len(qcfgs)} cells x "
           f"{QFED_GRID_ROUNDS} rounds: {qsecs:.3f} s, "
@@ -574,6 +611,343 @@ def run_grid_phase(card):
 
 # ---------------------------------------------------------------------------
 # phase 6
+# ---------------------------------------------------------------------------
+def robust_inputs(shape, seed, dev, *, mode, use_ef, gates_on,
+                  finite=False):
+    """One scenario's robust-kernel operands as the engine makes them
+    (``robust_prepass``): uploads with a partial last packet and, unless
+    ``finite``, NaN and Inf planted in three packets; EF rows, masks,
+    weights with one zero, sufficiency, q-FedAvg multipliers; the gates
+    all off, or screen + clip 5.0 + trim."""
+    C, P, F = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d_up = P * F - 11
+    x = torch.randn((C, P * F), device=dev, generator=g)
+    x[:, d_up:] = 0.0
+    x = x.reshape(C, P, F)
+    if not finite:
+        x[1, 2, 3] = math.nan
+        x[3, 0, 0] = math.inf
+        x[C - 1, P - 1, 5] = -math.inf
+    ef = torch.randn((C, d_up), device=dev, generator=g) if use_ef else None
+    m = (torch.rand((C, P), device=dev, generator=g) > 0.3).float()
+    w = torch.rand((C,), device=dev, generator=g) + 0.1
+    w[0] = 0.0
+    suff = (torch.rand((C,), device=dev, generator=g) > 0.5).float()
+    mult = torch.rand((C,), device=dev, generator=g) + 0.5
+    scr, cn, trg = (1.0, 5.0, 1.0) if gates_on else (0.0, CLIP_OFF, 0.0)
+    return robust_prepass(
+        x, m, w, mode=mode, d_up=d_up, screen=scr, clip_norm=cn,
+        trim_gate=trg, trim_k=0 if mode == "per_coord_count" else TRIM_K,
+        ef_rows=ef, sufficient=suff, loss_rate=0.3, mult=mult)
+
+
+def batched_robust_inputs(shape, seed, dev, *, mode, use_ef,
+                          finite=False):
+    """S scenarios' operands, stacked; odd scenarios defended."""
+    pres = [robust_inputs(shape[1:], seed * 1000 + i, dev, mode=mode,
+                          use_ef=use_ef, gates_on=i % 2 == 1,
+                          finite=finite) for i in range(shape[0])]
+    args = tuple(None if a is None else torch.stack(
+        [p.args[j] for p in pres]) for j, a in enumerate(pres[0].args))
+    return args, pres[0].trim_k, pres[0].per_coord
+
+
+def robust_kw(args, trim_k, per_coord):
+    return dict(ef=args[6], g=args[7], w_pos=args[8], trim_k=trim_k,
+                per_coord=per_coord)
+
+
+def same_bits(a, b):
+    """Bitwise equality, NaN compared by position: the card writes its
+    own NaN payload."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan],
+                                                            b[~nan])
+
+
+def finite_err(a, b):
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+
+
+def check_robust_plain(agg, ef_out, args, trim_k, per_coord, case):
+    """agg against robust_ref at rtol = atol = 1e-6 with equal NaN
+    positions (the trim's sums run in extraction order, the plain
+    version's over a sorted slice), EF bitwise. Returns max |agg err|."""
+    x, m, q, wd, scr, trg = args[:6]
+    r_agg, r_ef, _ = robust_ref(x, m, q, wd, screen=scr, trim_gate=trg,
+                                **robust_kw(args, trim_k, per_coord))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(agg, r_agg, rtol=1e-6, atol=1e-6,
+                               equal_nan=True,
+                               msg=lambda e: f"robust agg {case}: {e}")
+    if (args[6] is None) != (ef_out is None):
+        fail(f"robust ef_out presence wrong: {case}")
+    if ef_out is not None and not same_bits(ef_out, r_ef):
+        fail(f"robust ef_out not bitwise: {case}")
+    return finite_err(agg, r_agg)
+
+
+def check_robust_kernels(dev):
+    """robust_agg and robust_agg_batched against robust_ref, the batched
+    launch against S single launches, and the gates-off kernel against
+    uplink_fused. Returns the largest |agg err| of each entry."""
+    err = {"single": 0.0, "batched": 0.0}
+    n_single = 0
+    for shape, mode, gates_on, use_ef in itertools.product(
+            (ROBUST_SHAPE, ROBUST_TILE_SHAPE), DEBIAS_MODES, (False, True),
+            (False, True)):
+        pre = robust_inputs(shape, n_single, dev, mode=mode, use_ef=use_ef,
+                            gates_on=gates_on)
+        n_single += 1
+        case = f"shape={shape} mode={mode} gates={gates_on} ef={use_ef}"
+        agg, ef_out = ra.robust_agg_call(
+            *pre.args[:6], **robust_kw(pre.args, pre.trim_k, pre.per_coord))
+        torch.cuda.synchronize()
+        # the screen leaves nothing non-finite; without it the planted
+        # NaN reaches the aggregate, as the reference's undefended run
+        if bool(torch.isfinite(agg).all()) != gates_on:
+            fail(f"robust agg finiteness wrong: {case}")
+        err["single"] = max(err["single"], check_robust_plain(
+            agg, ef_out, pre.args, pre.trim_k, pre.per_coord, case))
+    n_batched = 0
+    for shape, mode, use_ef in itertools.product(
+            (ROBUST_GRID_SHAPE, ROBUST_GRID_TILE_SHAPE), DEBIAS_MODES,
+            (False, True)):
+        args, trim_k, pc = batched_robust_inputs(shape, n_batched + 100,
+                                                 dev, mode=mode,
+                                                 use_ef=use_ef)
+        n_batched += 1
+        case = f"shape={shape} mode={mode} ef={use_ef} (per-scenario gates)"
+        kw = robust_kw(args, trim_k, pc)
+        agg, ef_out = ra.robust_agg_batched_call(*args[:6], **kw)
+        torch.cuda.synchronize()
+        for i in range(shape[0]):
+            a, e = ra.robust_agg_call(
+                *(t[i] for t in args[:6]),
+                **robust_kw([None if t is None else t[i] for t in args],
+                            trim_k, pc))
+            if not (same_bits(a, agg[i])
+                    and (e is None or same_bits(e, ef_out[i]))):
+                fail(f"robust batched launch differs from single launch "
+                     f"{i}: {case}")
+        err["batched"] = max(err["batched"], check_robust_plain(
+            agg, ef_out, args, trim_k, pc, case))
+        del args, agg, ef_out
+    n_off = 0
+    for shape, mode, use_ef in itertools.product(
+            (ROBUST_SHAPE, ROBUST_TILE_SHAPE), DEBIAS_MODES, (False, True)):
+        pre = robust_inputs(shape, 500 + n_off, dev, mode=mode,
+                            use_ef=use_ef, gates_on=False, finite=True)
+        n_off += 1
+        x, m, q, wd = pre.args[:4]
+        agg, ef_out = ra.robust_agg_call(
+            *pre.args[:6], **robust_kw(pre.args, pre.trim_k, pre.per_coord))
+        u_agg, u_ef, _ = uf.uplink_fused_call(x, m, q, wd, ef=pre.args[6],
+                                              per_coord=pre.per_coord)
+        torch.cuda.synchronize()
+        if not (torch.equal(agg, u_agg)
+                and (u_ef is None or torch.equal(ef_out, u_ef))):
+            fail(f"robust_agg with the gates off is not bitwise "
+                 f"uplink_fused: shape={shape} mode={mode} ef={use_ef}")
+    print(f"[faults] robust_agg: {n_single} cases match robust_ref (agg "
+          f"rtol 1e-6 atol 1e-6, NaN positions equal, EF bitwise), max "
+          f"|agg err| {err['single']:.3e}; robust_agg_batched: "
+          f"{n_batched} cases with per-scenario gates match robust_ref "
+          f"and equal S single launches bitwise, max |agg err| "
+          f"{err['batched']:.3e}; gates off: bitwise uplink_fused in "
+          f"{n_off} cases", flush=True)
+    return err
+
+
+def fault_inputs():
+    """The corruption recipe's data and networks (docs/EXPERIMENTS.md)."""
+    n = 20
+    data = generate_synthetic(np.random.default_rng(0), n_clients=n,
+                              alpha=0.5, beta=0.5)
+    return data, ClientNetworks(np.linspace(0.5, 20.0, n), np.full(n, 0.05))
+
+
+def fault_grid(n_rounds, seeds=(1,)):
+    """docs/EXPERIMENTS.md's corruption-tolerance grid: per seed the
+    clean, the faulted undefended and the faulted defended cell."""
+    base = FLConfig(algo="fedavg", n_rounds=n_rounds, clients_per_round=12,
+                    local_steps=4, batch_size=16, eval_every=10 ** 6,
+                    tra=TRAConfig(enabled=True, loss_rate=0.3),
+                    netsim=NetSimConfig(channel="gilbert_elliott",
+                                        burst_len=8.0, deadline=True,
+                                        deadline_s=60.0))
+    faults = FaultConfig(enabled=True, corrupt_rate=0.1, corrupt_scale=0.5,
+                         fail_rate=0.1)
+    defense = DefenseConfig(screen=True, clip=True, clip_norm=20.0,
+                            trim=True, trim_k=TRIM_K)
+    cells = [(FaultConfig(enabled=True), DefenseConfig(trim_k=TRIM_K)),
+             (faults, DefenseConfig(trim_k=TRIM_K)), (faults, defense)]
+    return [dataclasses.replace(base, seed=seed, faults=f, defense=d)
+            for seed in seeds for f, d in cells]
+
+
+def per_client_losses(params, data):
+    """The reference headline's eval: each client's weighted loss over
+    its first 64 training samples."""
+    dev = next(iter(params.values())).device
+    dd = stage_on_device(data, dev)
+    L = min(64, dd.train_x.shape[1])
+    msk = (torch.arange(L, device=dev)[None, :]
+           < dd.counts[:, None]).float()
+    with torch.no_grad():
+        return torch.func.vmap(mlp_weighted_loss, in_dims=(None, 0, 0, 0))(
+            params, dd.train_x[:, :L], dd.train_y[:, :L], msk).cpu().numpy()
+
+
+def check_fault_headline(states, logs, data, card):
+    """tests/test_faults.py's headline on the card's 3-cell run."""
+    cell = [{k: v[i] for k, v in states.params.items()} for i in range(3)]
+    l_clean, l_undef, l_def = (per_client_losses(p, data) for p in cell)
+    q = len(l_clean) // 4
+
+    def bq(losses):
+        return float(np.sort(losses)[-q:].mean())
+
+    quar = logs["quarantine"].sum(axis=(1, 2))
+    if np.isfinite(l_undef).all():
+        fail("fault grid: the undefended cell stayed finite")
+    if not np.isfinite(l_def).all():
+        fail("fault grid: the defended cell went non-finite")
+    if not (l_def.mean() < l_clean.mean() + 0.5
+            and bq(l_def) < bq(l_clean) + 0.5):
+        fail(f"fault grid: defended losses (mean {l_def.mean():.4f}, "
+             f"bottom quartile {bq(l_def):.4f}) not within 0.5 of clean "
+             f"({l_clean.mean():.4f}, {bq(l_clean):.4f})")
+    if not (quar[2] > 0 and quar[0] == 0):
+        fail(f"fault grid: quarantined packets per cell {quar}")
+    assert_finite_tree(cell[2], name="defended cell params")
+    print(f"[faults] headline: mean / bottom-quartile eval loss clean "
+          f"{l_clean.mean():.4f} / {bq(l_clean):.4f}, undefended "
+          f"non-finite for {int((~np.isfinite(l_undef)).sum())} of "
+          f"{len(l_undef)} clients, defended {l_def.mean():.4f} / "
+          f"{bq(l_def):.4f}; quarantined packets per cell "
+          f"{quar.astype(int).tolist()} | {card}", flush=True)
+
+
+def check_fault_histories(label, hists, cfgs, n_rounds):
+    """Clean and defended cells finite; undefended cells non-finite."""
+    for cfg, h in zip(cfgs, hists):
+        losses = [r.train_loss for r in h]
+        if len(losses) != n_rounds or h[-1].report is None:
+            fail(f"{label}: bad history")
+        undefended = cfg.faults.fail_rate > 0 and not cfg.defense.screen
+        if undefended == all(map(math.isfinite, losses)):
+            fail(f"{label}: seed {cfg.seed} fail_rate "
+                 f"{cfg.faults.fail_rate} screen {cfg.defense.screen}: "
+                 f"losses {losses}")
+
+
+def check_fault_card_vs_cpu(data, nets):
+    """The 3-cell fault grid for PARITY_ROUNDS rounds on the card and on
+    the CPU. Free-running, cohorts and quarantine counts must stay
+    equal: they depend on the uniforms and on finiteness alone. Round by
+    round from the CPU's state, the card's params must match the CPU's
+    at the parity tolerances, NaN positions (the undefended cell) as
+    sets."""
+    engs = {dev: SweepEngine.from_configs(fault_grid(PARITY_ROUNDS), data,
+                                          nets, device=dev)
+            for dev in ("cuda", "cpu")}
+    free = {dev: e.init_states() for dev, e in engs.items()}
+    forced = free["cpu"]
+    worst = 0.0
+    for t in range(PARITY_ROUNDS):
+        logs = {}
+        for dev, eng in engs.items():
+            free[dev], logs[dev] = eng.run_block(free[dev], t, 1)
+        for name in ("ids", "quarantine"):
+            if not np.array_equal(logs["cuda"][name], logs["cpu"][name]):
+                fail(f"fault grid {name} differ between cuda and cpu at "
+                     f"round {t}")
+        on_card, lg = engs["cuda"].run_block(to_device(forced, "cuda"), t,
+                                             1)
+        forced, lc = engs["cpu"].run_block(forced, t, 1)
+        vg, vc = grid_params(on_card, 3), grid_params(forced, 3)
+        np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(lg["loss"], lc["loss"], rtol=1e-5)
+        if not np.array_equal(lg["quarantine"], lc["quarantine"]):
+            fail(f"fault grid quarantine from the cpu state differs at "
+                 f"round {t}")
+        both = np.isfinite(vg) & np.isfinite(vc)
+        worst = max(worst, float(np.abs(vg - vc)[both].max()))
+    print(f"[parity] fault grid, cuda vs cpu, {PARITY_ROUNDS} rounds x 3 "
+          f"cells: cohorts and quarantine counts equal every round; round "
+          f"by round from the cpu state, max |param diff| {worst:.3e} "
+          f"(finite entries; NaN positions equal)", flush=True)
+
+
+def run_fault_phase(card):
+    """The fault grid's main path, its seeds through run_grid, the
+    defended cell alone, and card vs CPU. Returns the launch counts of
+    the main path and of the single-server run, and the grid's rate."""
+    data, nets = fault_inputs()
+    # warm-up of the defended step; its launches are not counted
+    SweepEngine.from_configs(fault_grid(2), data, nets).run()
+    torch.cuda.synchronize()
+    eng = SweepEngine.from_configs(fault_grid(FAULT_ROUNDS), data, nets)
+    states = eng.init_states()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    states, logs = eng.run_block(states, 0, FAULT_ROUNDS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    grid_counts = counts()
+    want = expect(robust_agg_batched=FAULT_ROUNDS, netsim_mask=FAULT_ROUNDS)
+    if grid_counts != want:
+        fail(f"fault grid launches {grid_counts}, expected {want}")
+    print(f"[faults] fault grid, 3 cells x {FAULT_ROUNDS} rounds through "
+          f"SweepEngine: {secs:.3f} s, {3 * FAULT_ROUNDS / secs:.1f} "
+          f"cell-rounds/s, launches {grid_counts} | {card}", flush=True)
+    check_fault_headline(states, logs, data, card)
+
+    cfgs = fault_grid(FAULT_ROUNDS, seeds=(0, 1, 2))
+    zero_counts()
+    t0 = time.perf_counter()
+    hists = run_grid(cfgs, data, nets)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if counts() != want:
+        fail(f"9-cell fault grid launches {counts()}, expected {want}")
+    check_fault_histories("9-cell fault grid", hists, cfgs, FAULT_ROUNDS)
+    rate = len(cfgs) * FAULT_ROUNDS / secs
+    print(f"[faults] fault grid x seeds {{0, 1, 2}}, {len(cfgs)} cells x "
+          f"{FAULT_ROUNDS} rounds through run_grid: {secs:.3f} s, "
+          f"{rate:.1f} cell-rounds/s, launches {counts()} | {card}",
+          flush=True)
+
+    zero_counts()
+    server = FederatedServer(fault_grid(FAULT_ROUNDS)[2], data, nets,
+                             device="cuda")
+    t0 = time.perf_counter()
+    hist = server.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    single_counts = counts()
+    want1 = expect(robust_agg=FAULT_ROUNDS, netsim_mask=FAULT_ROUNDS)
+    if single_counts != want1:
+        fail(f"defended server launches {single_counts}, expected {want1}")
+    if not all(math.isfinite(h.train_loss) for h in hist):
+        fail("defended server: non-finite losses")
+    assert_finite_tree(server.params, name="defended server params")
+    print(f"[faults] defended cell alone through FederatedServer, "
+          f"{FAULT_ROUNDS} rounds: {FAULT_ROUNDS / secs:.1f} rounds/s, "
+          f"launches {single_counts}, final sample acc "
+          f"{hist[-1].report.sample_average * 100:.1f}% | {card}",
+          flush=True)
+
+    check_fault_card_vs_cpu(data, nets)
+    return grid_counts, single_counts, rate
+
+
+# ---------------------------------------------------------------------------
+# phase 7
 # ---------------------------------------------------------------------------
 def median_ms(fn, reps=100, warmup=10):
     """Median of ``reps`` single-call times between two CUDA events,
@@ -725,6 +1099,69 @@ def time_mask(shape, card):
             "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def robust_ops(C, P, F, trim_k):
+    """Operations of one robust aggregation, counted per element of
+    (C, P, F): the finite test, the sanitising select and the
+    numerator's multiply-add (4); with the trimmed mean the estimate's
+    multiply and the total's multiply-add (3) and, per pass and side, a
+    compare-and-select of two to four operations (8 per pass); per
+    output the division, the trim's arithmetic and the gate (8)."""
+    per = 4 + (3 + 8 * trim_k if trim_k else 0)
+    return C * P * F * per + 8 * P * F
+
+
+def time_robust(shape, card, *, batched):
+    """robust_agg (or its batched entry) at ``shape``, with the
+    defended cell's call: group_rate, no EF, screen + clip + trim."""
+    if batched:
+        args, trim_k, pc = batched_robust_inputs(shape, 77, "cuda",
+                                                 mode="group_rate",
+                                                 use_ef=False)
+        call = ra.robust_agg_batched_call
+        name, eq = "robust_agg_batched", "scpf,scp->spf"
+    else:
+        pre = robust_inputs(shape, 77, "cuda", mode="group_rate",
+                            use_ef=False, gates_on=True)
+        args, trim_k, pc = pre.args, pre.trim_k, pre.per_coord
+        call = ra.robust_agg_call
+        name, eq = "robust_agg", "cpf,cp->pf"
+    x, m, q, wd, scr, trg = args[:6]
+    kw = robust_kw(args, trim_k, pc)
+    wm = m * q[..., None]
+
+    def kernel():
+        return call(x, m, q, wd, scr, trg, **kw)
+
+    def plain():
+        return robust_ref(x, m, q, wd, screen=scr, trim_gate=trg, **kw)
+
+    def library():
+        return torch.einsum(eq, x, wm)
+
+    reps = 20 if shape[-2] > 100 else 100
+    p1, k1, k2, p2 = (median_ms(f, reps=reps)
+                      for f in (plain, kernel, kernel, plain))
+    lib_ms = median_ms(library, reps=reps)
+    dev_ms = device_ms(kernel, "robust_agg_kernel")
+    agg, _ = kernel()
+    n_bytes = sum(t.nbytes for t in (*args[:6], args[7], args[8], agg))
+    S = shape[0] if batched else 1
+    C, P, F = shape[-3:]
+    bound_ms, bound_by = bound(n_bytes, S * robust_ops(C, P, F, trim_k))
+    print(f"[time] {name} {'S=%d ' % S if batched else ''}C={C} P={P} "
+          f"F={F} f32 trim_k={trim_k}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+          f"{p1:.4f}/{p2:.4f} ms, einsum of the aggregate only "
+          f"{lib_ms:.4f} ms (per call, CUDA events, median of {reps}; no "
+          f"single PyTorch call computes the screen or the trimmed mean); "
+          f"kernel device time "
+          + (f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured")
+          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
+    return {"ms": statistics.median([k1, k2]),
+            "plain_ms": statistics.median([p1, p2]), "library_ms": lib_ms,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def print_profile(label, prof, wall_ms, n):
     rows = []
     for ev in prof.key_averages():
@@ -756,6 +1193,25 @@ def profile_grid(card, n=5):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     print_profile(f"{n} bursty-grid rounds (27 cells) | {card}", prof,
+                  wall_ms, n)
+
+
+def profile_fault_grid(card, n=5):
+    """Device busy share and top kernels over ``n`` defended grid rounds
+    (the fault grid x 3 seeds, 9 cells)."""
+    data, nets = fault_inputs()
+    eng = SweepEngine.from_configs(fault_grid(n + 2, seeds=(0, 1, 2)), data,
+                                   nets)
+    st = eng.init_states()
+    st, _ = eng.run_block(st, 0, 2)                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = eng.run_block(st, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} defended fault-grid rounds (9 cells) | {card}", prof,
                   wall_ms, n)
 
 
@@ -798,14 +1254,21 @@ def main() -> int:
     launches = run_main_path(card)
     check_card_vs_cpu()
     grid_counts, _, _ = run_grid_phase(card)
+    robust_err = check_robust_kernels(dev)
+    fault_counts, single_fault_counts, _ = run_fault_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
     batched_t = time_batched_uplink(GRID_SHAPE, card)
     time_batched_uplink(GRID_TILE_SHAPE, card)
     mask_t = time_mask(MASK_SHAPE, card)
     time_mask(MASK_TILE_SHAPE, card)
+    robust_t = time_robust(ROBUST_SHAPE, card, batched=False)
+    time_robust(ROBUST_TILE_SHAPE, card, batched=False)
+    robust_batched_t = time_robust(ROBUST_GRID_SHAPE, card, batched=True)
+    time_robust(ROBUST_GRID_TILE_SHAPE, card, batched=True)
     profile_rounds(card)
     profile_grid(card)
+    profile_fault_grid(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [
@@ -818,6 +1281,14 @@ def main() -> int:
         entry("netsim_mask", "src/repro_torch/csrc/netsim_mask.cu",
               "src/repro/kernels/netsim_mask/netsim_mask.py:66",
               grid_counts["netsim_mask"], mask_err, mask_t),
+        entry("robust_agg", "src/repro_torch/csrc/robust_agg.cu",
+              "src/repro/kernels/robust_agg/robust_agg.py:170",
+              single_fault_counts["robust_agg"], robust_err["single"],
+              robust_t),
+        entry("robust_agg_batched", "src/repro_torch/csrc/robust_agg.cu",
+              "src/repro/kernels/robust_agg/robust_agg.py:238",
+              fault_counts["robust_agg_batched"], robust_err["batched"],
+              robust_batched_t),
     ]}
     print(card)
     print(json.dumps(summary))

@@ -12,13 +12,15 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.engine import EngineState
 from repro_torch.netsim.state import NetSimState
 
 
 def params_from_jax(tree: Dict[str, np.ndarray], device
                     ) -> Dict[str, torch.Tensor]:
     """The reference MLP's parameter dict -> the port's, float32 tensors
-    on ``device`` in the reference's leaf order (b1, b2, w1, w2)."""
+    on ``device`` in the reference's leaf order (b1, b2, w1, w2). A
+    leading scenario axis, as in a sweep's stacked state, is kept."""
     return {k: torch.tensor(np.asarray(tree[k], np.float32), device=device)
             for k in sorted(tree)}
 
@@ -39,3 +41,25 @@ def net_state_from_jax(net, device) -> NetSimState:
         logbw=torch.tensor(np.asarray(net.logbw, np.float32),
                            device=device),
         down=torch.tensor(np.asarray(net.down, np.int32), device=device))
+
+
+def engine_state_from_jax(state, device) -> EngineState:
+    """The reference's ``EngineState`` (fields as arrays) -> the port's:
+    params, EF memory, AFL weights, simulator state and the fault
+    model's echo memory, single or stacked along a scenario axis. The
+    reputation memory is carried over only as the (0,) the port holds:
+    the policy that reads it is not ported."""
+    rep = np.asarray(state.rep_mem)
+    if rep.size:
+        raise NotImplementedError(
+            "the reputation memory (reputation_aware selection) is not "
+            "ported to repro_torch yet")
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return EngineState(
+        params=params_from_jax({k: np.asarray(v)
+                                for k, v in state.params.items()}, device),
+        ef_mem=f32(state.ef_mem), lam=f32(state.lam),
+        net=net_state_from_jax(state.net, device),
+        echo_mem=f32(state.echo_mem), rep_mem=f32(rep))

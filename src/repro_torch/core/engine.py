@@ -14,14 +14,22 @@ One round is:
   * selection    — uniform Gumbel-top-k over the eligibility mask,
   * local train  — FedAvg / q-FedAvg SGD, ``torch.func.vmap``ped over
                    the cohort,
+  * faults       — with ``faults.enabled``, client faults (echo
+                   replay, sign flip, NaN failure) on the trained
+                   uploads, from ``fold_in(round key, FAULT_FOLD)``,
   * loss channel — the i.i.d. packet-loss mask, or the Gilbert–Elliott
                    chain of each cohort client (``kernels/netsim_mask``,
                    the CUDA kernel on the card), with the sufficiency
                    override; then the AR(1) bandwidth step for all N
-                   clients and the sync deadline drop,
+                   clients and the sync deadline drop; with faults on,
+                   packet faults (corruption, bit flips) on what is
+                   delivered,
   * TRA uplink   — ONE ``uplink_round`` call: EF re-inject, debias
                    aggregate, new EF rows and the q-FedAvg norms (the
-                   CUDA megakernel on the card),
+                   CUDA megakernel on the card); with faults on, ONE
+                   ``robust_uplink_round`` call instead: the finite
+                   screen, norm clip and trimmed mean as gates (the
+                   robust-aggregation kernel on the card),
   * server step  — FedAvg's weighted mean or q-FedAvg's h-normalised
                    step.
 
@@ -30,13 +38,15 @@ step's closure, so ``core/sweep.py`` can stack S scenarios behind a
 leading axis and ``torch.func.vmap`` the same step over them: the
 kernels batch through their ops' vmap rules. Static structure
 (algorithm, debias mode, cohort size, local steps, batch size, TRA
-on/off, error feedback, the netsim model selection) stays in the
-closure and must be shared across a sweep.
+on/off, error feedback, the netsim model selection, ``faults.enabled``
+and ``defense.trim_k``) stays in the closure and must be shared across
+a sweep.
 
 This slice ports the reference's round with: fedavg and qfedavg,
 uniform selection, the sync server, the iid and Gilbert–Elliott
-channels, the AR(1) bandwidth walk and the deadline. No faults, no
-telemetry, one-shot recovery, no downlink model. ``run_block`` is a
+channels, the AR(1) bandwidth walk, the deadline, and the fault model
+with its defenses. No telemetry, one-shot recovery, no downlink model,
+no reputation memory. ``run_block`` is a
 Python loop over the same step ``run_single`` runs, so the block and
 per-round paths agree by construction.
 """
@@ -55,9 +65,11 @@ from repro_torch.core.selection import select_from_uniforms
 from repro_torch.core.tra import flatten_clients, unflatten_like
 from repro_torch.data.synthetic import DeviceDataset, stage_on_device
 from repro_torch.kernels.netsim_mask import ops as netsim_ops
+from repro_torch.kernels.robust_agg import ops as robust_ops
 from repro_torch.kernels.uplink_fused import ops as uplink_ops
 from repro_torch.netsim.bandwidth import logbw_round_step
 from repro_torch.netsim.channel import ge_transition_probs
+from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim.delivery import (deadline_delivered,
                                          round_upload_seconds)
 from repro_torch.netsim.state import NetSimState, init_net_state
@@ -72,6 +84,12 @@ class EngineState(NamedTuple):
     ef_mem: torch.Tensor   # (N, D) error-feedback memory, or (0,)
     lam: torch.Tensor      # (N,) AFL mixture weights (always allocated)
     net: NetSimState       # channel states + log-bandwidth levels
+    # fault-model carries; (0,) when faults.enabled is False:
+    # the last genuine upload of each client, what an echo replays
+    echo_mem: torch.Tensor  # (N, D) f32, or (0,)
+    # the reputation memory of the reputation_aware selection policy,
+    # which is not ported: always (0,)
+    rep_mem: torch.Tensor   # (0,)
 
 
 class ScenarioCtx(NamedTuple):
@@ -89,11 +107,36 @@ class ScenarioCtx(NamedTuple):
     bad_loss: torch.Tensor   # () f32 BAD-state per-packet loss (GE)
     bw_rho: torch.Tensor     # () f32 AR(1) round-to-round correlation
     deadline_s: torch.Tensor  # () f32 per-round upload deadline
+    # fault rates and defense gates (read only when faults.enabled)
+    f_corrupt: torch.Tensor  # () f32 P(packet Gaussian-corrupted)
+    f_cscale: torch.Tensor   # () f32 corruption noise stddev
+    f_bitflip: torch.Tensor  # () f32 P(packet single-bit flip)
+    f_fail: torch.Tensor     # () f32 P(client NaN device failure)
+    f_flip: torch.Tensor     # () f32 P(client sign-flip byzantine)
+    f_echo: torch.Tensor     # () f32 P(client stale-echo replay)
+    d_screen: torch.Tensor   # () f32 gate: finite-screen quarantine
+    d_clip: torch.Tensor     # () f32 clip norm (faults.CLIP_OFF = off)
+    d_trim: torch.Tensor     # () f32 gate: trimmed-mean aggregation
 
 
 # the ScenarioCtx fields that come from NetSimConfig fields of one name
 CTX_NETSIM_FIELDS = ("burst_len", "good_loss", "bad_loss", "bw_rho",
                      "deadline_s")
+# the ScenarioCtx fields of the fault model, from ``fault_knobs``
+CTX_FAULT_FIELDS = ("f_corrupt", "f_cscale", "f_bitflip", "f_fail",
+                    "f_flip", "f_echo", "d_screen", "d_clip", "d_trim")
+
+
+def fault_knobs(flt, dfn) -> Dict[str, float]:
+    """The CTX_FAULT_FIELDS values of one scenario's fault and defense
+    configs: the rates as they are, the gates as 1.0 / 0.0 and the clip
+    as ``faults.clip_knob``."""
+    return {"f_corrupt": flt.corrupt_rate, "f_cscale": flt.corrupt_scale,
+            "f_bitflip": flt.bitflip_rate, "f_fail": flt.fail_rate,
+            "f_flip": flt.flip_rate, "f_echo": flt.echo_rate,
+            "d_screen": 1.0 if dfn.screen else 0.0,
+            "d_clip": faults_mod.clip_knob(dfn),
+            "d_trim": 1.0 if dfn.trim else 0.0}
 
 # FLConfig fields a scenario may vary without changing the step's
 # structure; everything else must agree across a sweep.
@@ -115,7 +158,12 @@ def static_signature(cfg):
         cfg.netsim, **{f: 0.0 for f in SWEEP_VARYING_NETSIM_FIELDS})
     sel = dataclasses.replace(
         cfg.sel, **{f: 0.0 for f in SWEEP_VARYING_SEL_FIELDS})
-    return dataclasses.replace(cfg, tra=tra, netsim=ns, sel=sel, seed=0,
+    flt = dataclasses.replace(
+        cfg.faults,
+        **{f: 0.0 for f in faults_mod.SWEEP_VARYING_FAULT_FIELDS})
+    dfn = dataclasses.replace(cfg.defense, **faults_mod.DEF_NEUTRAL)
+    return dataclasses.replace(cfg, tra=tra, netsim=ns, sel=sel,
+                               faults=flt, defense=dfn, seed=0,
                                selection="all", eligible_ratio=1.0)
 
 
@@ -147,6 +195,23 @@ def validate_round_config(cfg) -> None:
             f"netsim channel={ns.channel!r} models lossy TRA uploads "
             f"and requires tra.enabled=True (with TRA off, uploads are "
             f"reliable and the channel would be silently inert)")
+    dfn = cfg.defense
+    if not cfg.faults.enabled and (dfn.screen or dfn.clip or dfn.trim
+                                   or dfn.trim_k > 0):
+        raise ValueError(
+            "defenses (screen/clip/trim/trim_k) require "
+            "faults.enabled=True: the robust uplink is only built with "
+            "the fault model (enable it with zero rates for a fault-free "
+            "defended run)")
+    if dfn.trim and dfn.trim_k < 1:
+        raise ValueError(
+            "defense.trim=True needs trim_k >= 1 (the static per-side "
+            "trim count)")
+    if dfn.trim_k > 0 and cfg.tra.debias == "per_coord_count":
+        raise ValueError(
+            "trimmed-mean aggregation replaces the weighted mean and "
+            "cannot compose with per_coord_count's per-coordinate "
+            "denominators (use another debias mode, or trim_k=0)")
 
 
 def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
@@ -171,7 +236,10 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
         lam=torch.ones((n_clients,), device=dev) / n_clients,
         net=init_net_state(cfg.netsim if netsim is None else netsim,
                            n_clients, device=dev, base_key=base_key,
-                           loss_rate=loss_rate, upload_mbps=upload_mbps))
+                           loss_rate=loss_rate, upload_mbps=upload_mbps),
+        echo_mem=torch.zeros((n_clients, D), device=dev)
+        if cfg.faults.enabled else torch.zeros((0,), device=dev),
+        rep_mem=torch.zeros((0,), device=dev))
 
 
 def make_round_step(cfg, cohort: int):
@@ -195,6 +263,10 @@ def make_round_step(cfg, cohort: int):
     use_ge = ns.channel == "gilbert_elliott"
     use_bw = ns.bw_ar1
     use_dl = ns.deadline
+    # the fault model: faults.enabled is its one static switch, and
+    # defense.trim_k (the trimmed mean's extent) is static too
+    use_faults = cfg.faults.enabled
+    trim_k = cfg.defense.trim_k
 
     def step(ctx: ScenarioCtx, state: EngineState, t: int):
         dd = ctx.data
@@ -230,6 +302,16 @@ def make_round_step(cfg, cohort: int):
 
         uploads, aux = train(params, X, Y)
         flat = flatten_clients(uploads, C)                   # (C, D)
+
+        # client faults: what the cohort actually uploads. Their own fold
+        # of the round key leaves the round's draws untouched; zero rates
+        # pass ``flat`` through bitwise.
+        flat_clean = flat
+        if use_faults:
+            fkey = prng.fold_in(key, faults_mod.FAULT_FOLD)
+            flat = faults_mod.inject_client_faults(
+                fkey, flat, state.echo_mem[ids], fail_rate=ctx.f_fail,
+                flip_rate=ctx.f_flip, echo_rate=ctx.f_echo)
 
         pad = P * Fp - D_up
         xp = F.pad(flat, (0, pad)).reshape(C, P, Fp)
@@ -272,9 +354,18 @@ def make_round_step(cfg, cohort: int):
             pkt_mask = pkt_mask * delivered[:, None]
             arrival = delivered
 
+        # packet faults: damage in flight to the packets the channel and
+        # the deadline deliver (a lost packet never reaches the server,
+        # so EF recycling stays clean). Zero rates pass ``xp`` through.
+        if use_faults:
+            xp = faults_mod.inject_packet_faults(
+                fkey, xp, pkt_mask, corrupt_rate=ctx.f_corrupt,
+                corrupt_scale=ctx.f_cscale, bitflip_rate=ctx.f_bitflip)
+
         kept = None
-        if debias == "per_client_rate":
-            # coordinate-weighted kept fraction (last packet partial)
+        if debias == "per_client_rate" and not use_faults:
+            # coordinate-weighted kept fraction (last packet partial); the
+            # fault path computes it from the screened mask instead
             pcnt = torch.full((P,), float(Fp), device=xp.device)
             pcnt[-1] = Fp - pad
             kept = (pkt_mask @ pcnt) / D_up
@@ -287,10 +378,24 @@ def make_round_step(cfg, cohort: int):
         else:
             w_agg, mult, want_ssq = weights, None, False
 
-        agg, new_ef_rows, ssq = uplink_ops.uplink_round(
-            xp, pkt_mask, w_agg, mode=debias, d_up=D_up,
-            ef_rows=state.ef_mem[ids] if ef else None, kept=kept,
-            sufficient=suff, loss_rate=lr_c, mult=mult, want_ssq=want_ssq)
+        if use_faults:
+            # defended uplink: finite-screen quarantine (bad packets as if
+            # lost), norm clip, trimmed mean; off gates are bitwise the
+            # undefended expressions
+            rob = robust_ops.robust_uplink_round(
+                xp, pkt_mask, w_agg, mode=debias, d_up=D_up,
+                screen=ctx.d_screen, clip_norm=ctx.d_clip,
+                trim_gate=ctx.d_trim, trim_k=trim_k,
+                ef_rows=state.ef_mem[ids] if ef else None,
+                sufficient=suff, loss_rate=lr_c, mult=mult,
+                want_ssq=want_ssq)
+            agg, new_ef_rows, ssq = rob.agg, rob.ef_rows, rob.ssq
+        else:
+            agg, new_ef_rows, ssq = uplink_ops.uplink_round(
+                xp, pkt_mask, w_agg, mode=debias, d_up=D_up,
+                ef_rows=state.ef_mem[ids] if ef else None, kept=kept,
+                sufficient=suff, loss_rate=lr_c, mult=mult,
+                want_ssq=want_ssq)
         new_ef = state.ef_mem.index_copy(0, ids, new_ef_rows) if ef \
             else state.ef_mem
 
@@ -303,12 +408,19 @@ def make_round_step(cfg, cohort: int):
         else:  # fedavg: weighted mean of the uploaded models
             new_vec = agg
         new_params = unflatten_like(new_vec, params)
+        # the echo memory records what each client genuinely computed
+        echo_new = state.echo_mem.index_copy(0, ids, flat_clean) \
+            if use_faults else state.echo_mem
         logs = {"loss": aux["loss0"].mean(), "ids": ids}
+        if use_faults:
+            # per-cohort-slot quarantined-packet counts
+            logs["quarantine"] = rob.qcnt
         if use_dl:
             # per-cohort-slot arrival: 1 landed on time, 0 dropped
             logs["arrival"] = arrival
         net = NetSimState(net_channel, net_logbw, state.net.down)
-        return EngineState(new_params, new_ef, state.lam, net), logs
+        return EngineState(new_params, new_ef, state.lam, net, echo_new,
+                           state.rep_mem), logs
 
     return step
 
@@ -356,7 +468,9 @@ class RoundScanEngine:
                                     device=dev),
             data=self.dd,
             **{f: torch.tensor(getattr(cfg.netsim, f), dtype=torch.float32,
-                               device=dev) for f in CTX_NETSIM_FIELDS})
+                               device=dev) for f in CTX_NETSIM_FIELDS},
+            **{f: torch.tensor(v, dtype=torch.float32, device=dev)
+               for f, v in fault_knobs(cfg.faults, cfg.defense).items()})
 
     def init_state(self, params) -> EngineState:
         return init_engine_state(self.cfg, params, self.n_clients,
@@ -372,8 +486,8 @@ class RoundScanEngine:
     def run_block(self, state: EngineState, t0: int, k: int
                   ) -> Tuple[EngineState, Dict[str, np.ndarray]]:
         """Rounds [t0, t0+k); logs come to the host once, at the end.
-        Returns (state, {"loss": (k,), "ids": (k, C)[, "arrival":
-        (k, C)]})."""
+        Returns (state, {"loss": (k,), "ids": (k, C)[, "quarantine":
+        (k, C)][, "arrival": (k, C)]})."""
         logs = []
         for t in range(t0, t0 + k):
             state, lg = self._step(self.ctx, state, t)

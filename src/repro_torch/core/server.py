@@ -33,6 +33,7 @@ from repro_torch.core.tra import TRAConfig
 from repro_torch.data.synthetic import FederatedDataset, padded_eval_set
 from repro_torch.device import resolve_device
 from repro_torch.netsim.config import NetSimConfig
+from repro_torch.netsim.faults import DefenseConfig, FaultConfig
 from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
                                        sample_networks)
 
@@ -40,8 +41,8 @@ from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
 @dataclasses.dataclass
 class FLConfig:
     """The reference's top-level run configuration. Sub-configs that
-    later slices bring (server modes, faults, defenses, telemetry,
-    recovery, loss budget) are not part of the port yet."""
+    later slices bring (server modes, telemetry, recovery, loss budget)
+    are not part of the port yet."""
     algo: str = "fedavg"              # fedavg|qfedavg (ported)
     n_rounds: int = 100
     clients_per_round: int = 10
@@ -58,6 +59,11 @@ class FLConfig:
     # bandwidth walk, deadline delivery (the default is the iid channel
     # with both models off)
     netsim: NetSimConfig = dataclasses.field(default_factory=NetSimConfig)
+    # uplink fault injection (netsim/faults.py) and the robust-aggregation
+    # defenses against it (kernels/robust_agg); both off by default
+    faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    defense: DefenseConfig = dataclasses.field(
+        default_factory=DefenseConfig)
     # algorithm hyper-parameters (paper / source-code defaults)
     q: float = 1.0                    # q-FedAvg fairness exponent
     # q-FedAvg Lipschitz estimate (1.0 restores the paper's behaviour

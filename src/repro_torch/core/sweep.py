@@ -2,21 +2,22 @@
 
 A *scenario* is everything that may vary without changing the step's
 structure: the PRNG seed, the TRA loss rate, the eligibility and
-sufficiency masks, the dataset draw and the netsim knobs (burst length,
-emission rates, bandwidth correlation, deadline). ``SweepEngine``
+sufficiency masks, the dataset draw, the netsim knobs (burst length,
+emission rates, bandwidth correlation, deadline), the fault rates and
+the defense gates. ``SweepEngine``
 stacks S scenarios behind a leading axis: ``ScenarioCtx`` fields become
 (S, ...) tensors, per-scenario ``EngineState``s are stacked, and the
 data is one shared (N, M, D) set or a stacked (S, N, M, D) one.
 ``torch.func.vmap`` over the SAME round step that ``RoundScanEngine``
 runs then plays every scenario's round at once: each PyTorch launch
 carries S scenarios' work, and the kernels batch through their ops'
-vmap rules — one batched uplink launch and one Gilbert–Elliott mask
-launch per round for the whole grid.
+vmap rules — one batched uplink (or, with faults on, robust-aggregation)
+launch and one Gilbert–Elliott mask launch per round for the whole grid.
 
 Static structure (algorithm, debias mode, cohort size, local steps,
-batch size, TRA on/off, error feedback, netsim model selection) must be
-shared across a sweep; ``from_configs`` checks that and raises on a
-mixed grid.
+batch size, TRA on/off, error feedback, netsim model selection,
+``faults.enabled``, ``defense.trim_k``) must be shared across a sweep;
+``from_configs`` checks that and raises on a mixed grid.
 """
 from __future__ import annotations
 
@@ -28,19 +29,23 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import tra as tra_mod
-from repro_torch.core.engine import (CTX_NETSIM_FIELDS,
+from repro_torch.core.engine import (CTX_FAULT_FIELDS, CTX_NETSIM_FIELDS,
                                      SWEEP_VARYING_FIELDS,
                                      SWEEP_VARYING_NETSIM_FIELDS,
                                      SWEEP_VARYING_SEL_FIELDS,
                                      SWEEP_VARYING_TRA_FIELDS, EngineState,
-                                     ScenarioCtx, init_engine_state,
-                                     make_round_step, static_signature)
+                                     ScenarioCtx, fault_knobs,
+                                     init_engine_state, make_round_step,
+                                     static_signature)
 from repro_torch.core.mlp import mlp_init
 from repro_torch.data.synthetic import (DeviceDataset, FederatedDataset,
                                         stage_on_device,
                                         stage_scenarios_on_device)
 from repro_torch.device import resolve_device
 from repro_torch.netsim.config import NetSimConfig
+from repro_torch.netsim.faults import (SWEEP_VARYING_DEF_FIELDS,
+                                       SWEEP_VARYING_FAULT_FIELDS,
+                                       DefenseConfig, FaultConfig)
 from repro_torch.network.trace import (eligible_mask_device,
                                        sample_networks,
                                        stage_network_scenarios)
@@ -61,6 +66,10 @@ class Scenario:
     # netsim bandwidth/deadline model is on
     packet_loss: Optional[np.ndarray] = None   # (N,) drop rates
     upload_mbps: Optional[np.ndarray] = None   # (N,) speeds
+    # this cell's fault rates and defense gates (None -> the sweep
+    # config's); faults.enabled and defense.trim_k must agree
+    faults: Optional[FaultConfig] = None
+    defense: Optional[DefenseConfig] = None
 
 
 def scenario_from_config(cfg, data: FederatedDataset,
@@ -79,7 +88,8 @@ def scenario_from_config(cfg, data: FederatedDataset,
     return Scenario(seed=cfg.seed, loss_rate=cfg.tra.loss_rate,
                     sufficient=sufficient, eligible=eligible, data=data,
                     netsim=cfg.netsim, packet_loss=nets.packet_loss,
-                    upload_mbps=nets.upload_mbps)
+                    upload_mbps=nets.upload_mbps, faults=cfg.faults,
+                    defense=cfg.defense)
 
 
 def _netsim_models(ns: NetSimConfig):
@@ -130,6 +140,18 @@ class SweepEngine:
                     f"scenario {i} selects different netsim models than "
                     f"the sweep config; only {SWEEP_VARYING_NETSIM_FIELDS}"
                     f" may vary per cell")
+        flts = [s.faults if s.faults is not None else cfg.faults
+                for s in self.scenarios]
+        dfns = [s.defense if s.defense is not None else cfg.defense
+                for s in self.scenarios]
+        for i, (fl, df) in enumerate(zip(flts, dfns)):
+            if fl.enabled != cfg.faults.enabled \
+                    or df.trim_k != cfg.defense.trim_k:
+                raise ValueError(
+                    f"scenario {i} differs from the sweep config in a "
+                    f"static fault field (faults.enabled, defense.trim_k); "
+                    f"only faults.{SWEEP_VARYING_FAULT_FIELDS} and "
+                    f"defense.{SWEEP_VARYING_DEF_FIELDS} may vary per cell")
         if cfg.tra.per_client_loss:
             if any(s.packet_loss is None for s in self.scenarios):
                 raise ValueError("tra.per_client_loss needs per-client "
@@ -150,6 +172,8 @@ class SweepEngine:
             return torch.tensor([getattr(ns, f) for ns in nsims],
                                 dtype=torch.float32, device=dev)
 
+        fknobs = [fault_knobs(fl, df) for fl, df in zip(flts, dfns)]
+
         self.ctx = ScenarioCtx(
             base_key=torch.stack([prng.PRNGKey(s.seed, device=dev)
                                   for s in self.scenarios]),
@@ -160,12 +184,15 @@ class SweepEngine:
             sufficient=torch.tensor(np.stack(
                 [np.asarray(s.sufficient, np.float32)
                  for s in self.scenarios]), device=dev),
-            data=self.dd, **{f: knob(f) for f in CTX_NETSIM_FIELDS})
+            data=self.dd, **{f: knob(f) for f in CTX_NETSIM_FIELDS},
+            **{f: torch.tensor([k[f] for k in fknobs], dtype=torch.float32,
+                               device=dev) for f in CTX_FAULT_FIELDS})
         data_dim = 0 if self.data_batched else None
         ctx_dims = ScenarioCtx(
             base_key=0, loss_rate=0, eligible=0, sufficient=0,
             data=DeviceDataset(data_dim, data_dim, data_dim),
-            **{f: 0 for f in CTX_NETSIM_FIELDS})
+            **{f: 0 for f in CTX_NETSIM_FIELDS},
+            **{f: 0 for f in CTX_FAULT_FIELDS})
         self._vstep = torch.func.vmap(self._step,
                                       in_dims=(ctx_dims, 0, None))
 
@@ -191,8 +218,10 @@ class SweepEngine:
                     f"config {i} differs from config 0 in a static field; "
                     f"only {SWEEP_VARYING_FIELDS}, tra."
                     f"{SWEEP_VARYING_TRA_FIELDS}, netsim."
-                    f"{SWEEP_VARYING_NETSIM_FIELDS} and sel."
-                    f"{SWEEP_VARYING_SEL_FIELDS} may vary in one sweep")
+                    f"{SWEEP_VARYING_NETSIM_FIELDS}, sel."
+                    f"{SWEEP_VARYING_SEL_FIELDS}, faults."
+                    f"{SWEEP_VARYING_FAULT_FIELDS} and defense."
+                    f"{SWEEP_VARYING_DEF_FIELDS} may vary in one sweep")
         if isinstance(datas, FederatedDataset):
             datas = [datas] * S
         if len(datas) != S:
@@ -214,7 +243,8 @@ class SweepEngine:
                              n, c.tra.threshold_mbps),
                          eligible=eligible[i], data=d, netsim=c.netsim,
                          packet_loss=n.packet_loss,
-                         upload_mbps=n.upload_mbps)
+                         upload_mbps=n.upload_mbps, faults=c.faults,
+                         defense=c.defense)
                 for i, (c, d, n) in enumerate(zip(cfgs, datas, nets))]
         return cls(cfgs[0], scen, device=device)
 
@@ -243,8 +273,8 @@ class SweepEngine:
                   ) -> Tuple[EngineState, Dict[str, np.ndarray]]:
         """Rounds [t0, t0+k) of all scenarios, one batched step per
         round; logs come to the host once, demuxed scenario-major.
-        Returns (states, {"loss": (S, k), "ids": (S, k, C)[, "arrival":
-        (S, k, C)]})."""
+        Returns (states, {"loss": (S, k), "ids": (S, k, C)[,
+        "quarantine": (S, k, C)][, "arrival": (S, k, C)]})."""
         logs: List[Dict[str, torch.Tensor]] = []
         for t in range(t0, t0 + k):
             states, lg = self._vstep(self.ctx, states, t)
@@ -261,10 +291,14 @@ class SweepEngine:
 
 def _stack_states(states: Sequence[EngineState]) -> EngineState:
     s0 = states[0]
+
+    def stack(name):
+        return torch.stack([getattr(s, name) for s in states])
+
     return EngineState(
         params={k: torch.stack([s.params[k] for s in states])
                 for k in s0.params},
-        ef_mem=torch.stack([s.ef_mem for s in states]),
-        lam=torch.stack([s.lam for s in states]),
+        ef_mem=stack("ef_mem"), lam=stack("lam"),
         net=type(s0.net)(*(torch.stack(list(f)) for f in
-                           zip(*(s.net for s in states)))))
+                           zip(*(s.net for s in states)))),
+        echo_mem=stack("echo_mem"), rep_mem=stack("rep_mem"))

@@ -10,7 +10,13 @@ Tolerances: the uplink kernel against its plain version agg rtol 1e-5
 in the stream dtype, ssq rtol 1e-5; the batched uplink against S single
 launches bitwise; the Gilbert–Elliott mask against its plain version
 bitwise; a grid on the card against the CPU: cohorts and channel states
-bitwise, one round's params rtol 1e-4 / atol 1e-5.
+bitwise, one round's params rtol 1e-4 / atol 1e-5. The robust kernel
+against its plain version: agg rtol 1e-6 / atol 1e-6 with equal NaN
+positions, EF bitwise (a NaN compared by position: the card writes its
+own NaN payload); batched against S single launches bitwise; with the
+gates off, bitwise the uplink kernel on finite inputs; a defended grid
+round on the card against the CPU: cohorts and quarantine counts
+bitwise, params rtol 1e-4 / atol 1e-5.
 """
 import dataclasses
 
@@ -25,11 +31,15 @@ from repro_torch.data.synthetic import generate_synthetic
 from repro_torch.kernels.common import DENOM_EPS
 from repro_torch.kernels.netsim_mask import netsim_mask as t_nm
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref
+from repro_torch.kernels.robust_agg import robust_agg as t_ra
+from repro_torch.kernels.robust_agg.ref import robust_ref
 from repro_torch.kernels.uplink_fused import ops as t_ops
 from repro_torch.kernels.uplink_fused import uplink_fused as t_uf
 from repro_torch.kernels.uplink_fused.ref import uplink_ref
 from repro_torch.netsim.channel import ge_transition_probs
 from repro_torch.netsim.config import NetSimConfig
+from repro_torch.netsim.faults import DefenseConfig, FaultConfig, flip_bit_op
+from repro_torch.network.trace import ClientNetworks
 
 S, C, P, F = 3, 6, 16, 32
 D_UP = P * F - 11                       # partial last packet
@@ -176,3 +186,165 @@ def test_cuda_grid_launches_and_matches_cpu(dev):
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4,
                                atol=1e-5)
+
+
+def _robust_case(seed, dev, lead=(), *, finite=False, per_coord=False):
+    """Robust-kernel operands on the card: uploads with a partial last
+    packet (NaN and Inf planted unless ``finite``), EF, masks, scales,
+    trim scales, weight > 0 validity and the denominator."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=lead + (C, P, F)).astype(np.float32)
+    x[..., P - 1, D_UP - (P - 1) * F:] = 0.0
+    if not finite:
+        x[..., 1, 2, 3] = np.nan
+        x[..., 3, 0, 0] = np.inf
+    w = (rng.random(lead + (C,)) + 0.1).astype(np.float32)
+    w[..., 0] = 0.0
+    t = {k: torch.tensor(v, device=dev) for k, v in dict(
+        x=x, ef=rng.normal(size=lead + (C, P, F)).astype(np.float32),
+        m=(rng.random(lead + (C, P)) > 0.4).astype(np.float32),
+        q=(rng.random(lead + (C,)) + 0.5).astype(np.float32),
+        g=(rng.random(lead + (C,)) + 0.5).astype(np.float32), w=w).items()}
+    t["w_pos"] = (t["w"] > 0).float()
+    t["wd"] = t["w"] if per_coord else torch.clamp(t["w"].sum(-1),
+                                                   min=DENOM_EPS)
+    return t
+
+
+def _same_bits(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan],
+                                                            b[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", DEBIAS_MODES)
+@pytest.mark.parametrize("gates", [(0.0, 0.0), (1.0, 1.0)])
+@pytest.mark.parametrize("use_ef", [False, True])
+def test_cuda_robust_kernel_matches_plain(dev, mode, gates, use_ef):
+    per_coord = mode == "per_coord_count"
+    trim_k = 0 if per_coord else 2
+    t = _robust_case(5, dev, per_coord=per_coord)
+    scr, trg = (torch.tensor(v, device=dev) for v in gates)
+    kw = dict(ef=t["ef"] if use_ef else None, g=t["g"], w_pos=t["w_pos"],
+              trim_k=trim_k, per_coord=per_coord)
+    before = t_ra.LAUNCHES
+    agg, ef_out = t_ra.robust_agg_call(t["x"], t["m"], t["q"], t["wd"],
+                                       scr, trg, **kw)
+    torch.cuda.synchronize()
+    assert t_ra.LAUNCHES == before + 1
+    r_agg, r_ef, _ = robust_ref(t["x"], t["m"], t["q"], t["wd"],
+                                screen=scr, trim_gate=trg, **kw)
+    torch.testing.assert_close(agg, r_agg, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+    assert bool(torch.isfinite(agg).all()) == (gates[0] == 1.0)
+    if use_ef:
+        assert _same_bits(ef_out, r_ef)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ef", [False, True])
+@pytest.mark.parametrize("trim_k", [0, 2])
+def test_cuda_robust_batched_equals_single_launches(dev, use_ef, trim_k):
+    t = _robust_case(9, dev, (S,))
+    scr = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    trg = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    ef = t["ef"] if use_ef else None
+    before = t_ra.BATCHED_LAUNCHES
+    agg, ef_out = t_ra.robust_agg_batched_call(
+        t["x"], t["m"], t["q"], t["wd"], scr, trg, ef=ef, g=t["g"],
+        w_pos=t["w_pos"], trim_k=trim_k, per_coord=False)
+    torch.cuda.synchronize()
+    assert t_ra.BATCHED_LAUNCHES == before + 1
+    for i in range(S):
+        a, e = t_ra.robust_agg_call(
+            t["x"][i], t["m"][i], t["q"][i], t["wd"][i], scr[i], trg[i],
+            ef=None if ef is None else ef[i], g=t["g"][i],
+            w_pos=t["w_pos"][i], trim_k=trim_k, per_coord=False)
+        assert _same_bits(a, agg[i])
+        if use_ef:
+            assert _same_bits(e, ef_out[i])
+    r_agg, _, _ = robust_ref(t["x"], t["m"], t["q"], t["wd"], ef=ef,
+                             screen=scr, trim_gate=trg, g=t["g"],
+                             w_pos=t["w_pos"], trim_k=trim_k,
+                             per_coord=False)
+    torch.testing.assert_close(agg, r_agg, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", DEBIAS_MODES)
+def test_cuda_robust_gates_off_is_the_uplink_kernel(dev, mode):
+    """With every gate off the robust kernel is bitwise the uplink
+    kernel on the same finite inputs: the reference's neutral lock."""
+    per_coord = mode == "per_coord_count"
+    t = _robust_case(13, dev, finite=True, per_coord=per_coord)
+    off = torch.tensor(0.0, device=dev)
+    agg, ef_out = t_ra.robust_agg_call(
+        t["x"], t["m"], t["q"], t["wd"], off, off, ef=t["ef"], g=t["g"],
+        w_pos=t["w_pos"], trim_k=0 if per_coord else 2,
+        per_coord=per_coord)
+    u_agg, u_ef, _ = t_uf.uplink_fused_call(t["x"], t["m"], t["q"], t["wd"],
+                                            ef=t["ef"], per_coord=per_coord)
+    assert torch.equal(agg, u_agg) and torch.equal(ef_out, u_ef)
+
+
+@pytest.mark.cuda
+def test_cuda_flip_bit_matches_cpu(dev):
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.normal(size=(C, P, F)).astype(np.float32))
+    coord = torch.tensor(rng.integers(0, F, (C, P)).astype(np.int32))
+    bit = torch.tensor((np.arange(C * P) % 32).reshape(C, P)
+                       .astype(np.int32))
+    hit = torch.tensor(rng.random((C, P)) < 0.7)
+    cpu = flip_bit_op(x, coord, bit, hit)
+    card = flip_bit_op(*(a.to(dev) for a in (x, coord, bit, hit)))
+    assert torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+def _fault_grid(n_rounds):
+    """docs/EXPERIMENTS.md's corruption-tolerance recipe: clean,
+    faulted and undefended, faulted and defended."""
+    base = FLConfig(algo="fedavg", n_rounds=n_rounds, clients_per_round=12,
+                    local_steps=4, batch_size=16, eval_every=10 ** 6, seed=1,
+                    tra=TRAConfig(enabled=True, loss_rate=0.3),
+                    netsim=NetSimConfig(channel="gilbert_elliott",
+                                        burst_len=8.0, deadline=True,
+                                        deadline_s=60.0))
+    faults = FaultConfig(enabled=True, corrupt_rate=0.1, corrupt_scale=0.5,
+                         fail_rate=0.1)
+    return [dataclasses.replace(base, faults=FaultConfig(enabled=True),
+                                defense=DefenseConfig(trim_k=2)),
+            dataclasses.replace(base, faults=faults,
+                                defense=DefenseConfig(trim_k=2)),
+            dataclasses.replace(base, faults=faults, defense=DefenseConfig(
+                screen=True, clip=True, clip_norm=20.0, trim=True,
+                trim_k=2))]
+
+
+@pytest.mark.cuda
+def test_cuda_fault_grid_round_matches_cpu(dev):
+    """Two defended grid rounds are two batched robust launches and no
+    uplink launch; each matches the CPU's."""
+    n = 20
+    data = generate_synthetic(np.random.default_rng(0), n_clients=n,
+                              alpha=0.5, beta=0.5)
+    nets = ClientNetworks(np.linspace(0.5, 20.0, n), np.full(n, 0.05))
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = (t_ra.BATCHED_LAUNCHES, t_uf.LAUNCHES,
+                  t_uf.BATCHED_LAUNCHES)
+        eng = SweepEngine.from_configs(_fault_grid(2), data, nets, device=d)
+        st, logs = eng.run()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert (t_ra.BATCHED_LAUNCHES, t_uf.LAUNCHES,
+                    t_uf.BATCHED_LAUNCHES) == \
+                (before[0] + 2, before[1], before[2])
+        out[d] = (logs, np.concatenate(
+            [st.params[k].cpu().numpy().reshape(3, -1)
+             for k in sorted(st.params)], axis=1))
+    (lg, vg), (lc, vc) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(lg["ids"], lc["ids"])
+    np.testing.assert_array_equal(lg["quarantine"], lc["quarantine"])
+    np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5)
