@@ -9,8 +9,9 @@ toolkit:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the main
 paths (the quickstart's federated rounds, the paper's bursty-loss grid
-as one scenario-batched sweep, and the corruption-tolerance grid of
-fault rate x defense) through the kernels, compares the card's runs
+as one scenario-batched sweep, the corruption-tolerance grid of fault
+rate x defense, and the full-duplex recovery grid of recovery policy x
+loss rate) through the kernels, compares the card's runs
 with the CPU's, times the kernels, and ends with a one-line JSON
 verdict. Any failed check exits non-zero; with no card it exits
 non-zero at once and prints no result.
@@ -54,11 +55,27 @@ Phases:
                 3-cell grid for 5 rounds on the card and on the CPU:
                 equal cohorts and quarantine counts, and each round from
                 the CPU's state at the parity tolerances
-  7. timings    each kernel, its plain version and the library call
+  7. recovery   fec_recover bitwise vs fec_recover_ref at the recipe's
+                shape (R=72, P=36, G=8) and a tiling shape (R=4096,
+                P=1024, G=8 and G=3), and through the op's vmap rule
+                bitwise against S single launches. Then the
+                docs/EXPERIMENTS.md recovery grid (recovery policy x
+                uplink loss {0.1, 0.3}, 30% GE downlink with the stale
+                fallback; 40 rounds, N=20, C=12) through run_grid, the
+                counts set to 0 just before and read just after; the
+                reference's downlink headline (lossless / stale / zero
+                fill, 30 rounds) through FederatedServer on the card and
+                the CPU; the loss-budget controller (budget 0.05, ema
+                0.5, 6 rounds) on the card and the CPU; and the 6-cell
+                grid for 5 rounds on the card and on the CPU: equal
+                cohorts, channel states and levels, and each round from
+                the CPU's state at the parity tolerances
+  8. timings    each kernel, its plain version and the library call
                 (CUDA events, median of 100 after warm-up, 20 at the
-                tiling shapes of robust_agg), device time from
-                torch.profiler, the bound; and profiles of quickstart
-                rounds, of grid rounds and of defended grid rounds
+                tiling shapes of robust_agg and fec_recover), device
+                time from torch.profiler, the bound; and profiles of
+                quickstart rounds, of grid rounds, of defended grid
+                rounds and of recovery grid rounds
 """
 from __future__ import annotations
 
@@ -79,15 +96,19 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.core.lossbudget import LossBudgetConfig  # noqa: E402
 from repro_torch.core.mlp import mlp_weighted_loss  # noqa: E402
 from repro_torch.core.server import (FederatedServer, FLConfig,  # noqa: E402
                                      run_grid)
 from repro_torch.core.sweep import SweepEngine  # noqa: E402
 from repro_torch.core.tra import DEBIAS_MODES, TRAConfig  # noqa: E402
 from repro_torch.data.synthetic import (generate_synthetic,  # noqa: E402
-                                        stage_on_device)
+                                        padded_eval_set, stage_on_device)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import DENOM_EPS  # noqa: E402
+from repro_torch.kernels.fec_recover import fec_recover as fc  # noqa: E402
+from repro_torch.kernels.fec_recover import ops as fec_ops  # noqa: E402
+from repro_torch.kernels.fec_recover.ref import fec_recover_ref  # noqa: E402
 from repro_torch.kernels.netsim_mask import netsim_mask as nm  # noqa: E402
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref  # noqa: E402
 from repro_torch.kernels.robust_agg import robust_agg as ra  # noqa: E402
@@ -99,6 +120,8 @@ from repro_torch.kernels.uplink_fused.ref import uplink_ref  # noqa: E402
 from repro_torch.netsim.config import NetSimConfig  # noqa: E402
 from repro_torch.netsim.faults import (CLIP_OFF, DefenseConfig,  # noqa: E402
                                        FaultConfig)
+from repro_torch.netsim.recovery import (RECOVERY_POLICIES,  # noqa: E402
+                                         RecoveryConfig)
 from repro_torch.network.trace import (ClientNetworks,  # noqa: E402
                                        sample_networks)
 from repro_torch.utils.guards import assert_finite_tree  # noqa: E402
@@ -123,6 +146,11 @@ ROBUST_GRID_SHAPE = (9, 12, 36, 256)   # S = 3 cells x 3 seeds
 ROBUST_GRID_TILE_SHAPE = (8, 64, 1024, 256)
 TRIM_K = 2
 FAULT_ROUNDS = 40
+FEC_SHAPE = (72, 36, 8)         # R = S * C, P, G of the recovery grid
+FEC_TILE_SHAPES = ((4096, 1024, 8), (4096, 1024, 3))
+REC_ROUNDS = 40
+HEADLINE_ROUNDS = 30
+CTRL_ROUNDS = 6
 
 
 def fail(msg: str) -> None:
@@ -132,7 +160,7 @@ def fail(msg: str) -> None:
 
 def zero_counts():
     uf.LAUNCHES = uf.BATCHED_LAUNCHES = nm.LAUNCHES = 0
-    ra.LAUNCHES = ra.BATCHED_LAUNCHES = 0
+    ra.LAUNCHES = ra.BATCHED_LAUNCHES = fc.LAUNCHES = 0
 
 
 def counts():
@@ -140,7 +168,8 @@ def counts():
             "uplink_fused_batched": uf.BATCHED_LAUNCHES,
             "netsim_mask": nm.LAUNCHES,
             "robust_agg": ra.LAUNCHES,
-            "robust_agg_batched": ra.BATCHED_LAUNCHES}
+            "robust_agg_batched": ra.BATCHED_LAUNCHES,
+            "fec_recover": fc.LAUNCHES}
 
 
 def expect(**launches):
@@ -491,11 +520,14 @@ def grid_params(states, n_cells):
 
 
 def to_device(states, dev):
-    return type(states)(
-        params={k: v.to(dev) for k, v in states.params.items()},
-        ef_mem=states.ef_mem.to(dev), lam=states.lam.to(dev),
-        net=type(states.net)(*(f.to(dev) for f in states.net)),
-        echo_mem=states.echo_mem.to(dev), rep_mem=states.rep_mem.to(dev))
+    def move(v):
+        if isinstance(v, dict):
+            return {k: t.to(dev) for k, t in v.items()}
+        if isinstance(v, tuple):
+            return type(v)(*(t.to(dev) for t in v))
+        return v.to(dev)
+
+    return type(states)(*(move(v) for v in states))
 
 
 def check_grid_card_vs_cpu(data, n_cells):
@@ -949,6 +981,248 @@ def run_fault_phase(card):
 # ---------------------------------------------------------------------------
 # phase 7
 # ---------------------------------------------------------------------------
+def fec_inputs(shape, seed, dev):
+    """A 0/1 mask with about one loss per group of G, so many groups are
+    repairable, and parity bits delivered at 70%."""
+    R, P, G = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = (torch.rand((R, P), device=dev, generator=g) > 1.0 / G).float()
+    parity = (torch.rand((R, -(-P // G)), device=dev, generator=g)
+              > 0.3).float()
+    return mask, parity, G
+
+
+def check_fec_kernel(dev):
+    """fec_recover bitwise against its plain version at the recipe's and
+    the tiling shapes, and through the op's vmap rule against S single
+    launches (the rule's fold is one launch). Returns 0.0, the largest
+    difference, for the summary."""
+    repaired = []
+    for n, shape in enumerate((FEC_SHAPE, *FEC_TILE_SHAPES)):
+        mask, par, G = fec_inputs(shape, n, dev)
+        out = fc.fec_recover_call(mask, par, group=G)
+        torch.cuda.synchronize()
+        if not torch.equal(out, fec_recover_ref(mask, par, G)):
+            fail(f"fec_recover differs from fec_recover_ref at {shape}")
+        repaired.append(int((out != mask).sum()))
+    S, C, P, G = 6, 12, 36, 8
+    mask, par, _ = fec_inputs((S * C, P, G), 7, dev)
+    mask, par = mask.reshape(S, C, P), par.reshape(S, C, -1)
+    before = fc.LAUNCHES
+    folded = torch.func.vmap(
+        lambda m, p: fec_ops.fec_recover(m, p, group=G))(mask, par)
+    torch.cuda.synchronize()
+    if fc.LAUNCHES - before != 1:
+        fail(f"the vmap fold made {fc.LAUNCHES - before} launches, not 1")
+    for i in range(S):
+        if not torch.equal(folded[i], fc.fec_recover_call(mask[i], par[i],
+                                                          group=G)):
+            fail(f"fec_recover vmap fold differs from single launch {i}")
+    print(f"[recovery] fec_recover: bitwise equal to fec_recover_ref at "
+          f"(R, P, G) = {FEC_SHAPE}, {FEC_TILE_SHAPES[0]} and "
+          f"{FEC_TILE_SHAPES[1]} ({repaired} packets repaired); the vmap "
+          f"fold of S={S} x C={C} rows is one launch, bitwise S single "
+          f"launches", flush=True)
+    return 0.0
+
+
+def recovery_grid(n_rounds):
+    """docs/EXPERIMENTS.md's recovery-policy x loss-rate recipe: 6 cells
+    of one traced program."""
+    base = FLConfig(algo="fedavg", n_rounds=n_rounds, clients_per_round=12,
+                    local_steps=4, batch_size=16, eval_every=10 ** 6, seed=1,
+                    tra=TRAConfig(enabled=True, loss_rate=0.3),
+                    netsim=NetSimConfig(channel="gilbert_elliott",
+                                        burst_len=8.0,
+                                        down_channel="gilbert_elliott",
+                                        down_fallback="stale",
+                                        down_loss=0.3))
+    return [dataclasses.replace(
+        base, tra=TRAConfig(enabled=True, loss_rate=rate),
+        recovery=RecoveryConfig(policy=policy, traced=True))
+        for policy in RECOVERY_POLICIES for rate in (0.1, 0.3)]
+
+
+def eval_losses(params, data):
+    """Mean and bottom-quartile (worst 25% of clients) eval loss, as the
+    reference's downlink headline reads them."""
+    dev = next(iter(params.values())).device
+    X, Y, W = (torch.from_numpy(a).to(dev) for a in padded_eval_set(data))
+    with torch.no_grad():
+        losses = torch.func.vmap(mlp_weighted_loss, in_dims=(None, 0, 0, 0))(
+            params, X, Y, W).cpu().numpy()
+    k = max(1, losses.size // 4)
+    return float(losses.mean()), float(np.sort(losses)[-k:].mean())
+
+
+def headline_run(ns, data, dev):
+    """tests/test_recovery.py's downlink headline run: 30 rounds, C=10,
+    iid TRA at 5%, the downlink per ``ns``, through FederatedServer."""
+    cfg = FLConfig(n_rounds=HEADLINE_ROUNDS, clients_per_round=10, seed=0,
+                   eval_every=10 ** 6, netsim=ns,
+                   tra=TRAConfig(enabled=True, loss_rate=0.05))
+    nets = sample_networks(np.random.default_rng(0), data.n_clients)
+    server = FederatedServer(cfg, data, nets, device=dev)
+    server.run()
+    return eval_losses(server.params, data)
+
+
+def check_downlink_headline(data, card):
+    """Lossless / stale / zero fill on the card and the CPU; stale below
+    zero fill on both numbers, on the card. The reference's bound
+    against the lossless run fails on the reference itself, so it is
+    printed, not held."""
+    cells = {"lossless": NetSimConfig(),
+             "stale": NetSimConfig(down_channel="gilbert_elliott",
+                                   down_fallback="stale", down_loss=0.3),
+             "zero": NetSimConfig(down_channel="gilbert_elliott",
+                                  down_fallback="zero", down_loss=0.3)}
+    out = {}
+    for name, ns in cells.items():
+        zero_counts()
+        out[name] = {"cuda": headline_run(ns, data, "cuda")}
+        want = expect(uplink_fused=HEADLINE_ROUNDS,
+                      netsim_mask=0 if name == "lossless"
+                      else HEADLINE_ROUNDS)
+        if counts() != want:
+            fail(f"downlink headline {name}: launches {counts()}, "
+                 f"expected {want}")
+        out[name]["cpu"] = headline_run(ns, data, "cpu")
+    stale, zero = out["stale"]["cuda"], out["zero"]["cuda"]
+    if not (stale[0] < zero[0] and stale[1] < zero[1]):
+        fail(f"downlink headline: stale {stale} not below zero fill {zero}")
+    lossless = out["lossless"]["cuda"][0]
+    print(f"[recovery] downlink headline, {HEADLINE_ROUNDS} rounds, 30% GE "
+          f"downlink, mean / bottom-quartile eval loss (cuda | cpu): "
+          + "; ".join(f"{n} {v['cuda'][0]:.4f} / {v['cuda'][1]:.4f} | "
+                      f"{v['cpu'][0]:.4f} / {v['cpu'][1]:.4f}"
+                      for n, v in out.items())
+          + f"; stale / lossless mean {stale[0] / lossless:.3f} (the "
+          f"reference's bound 1.35 is not held) | {card}", flush=True)
+    return out
+
+
+def controller_run(dev, data, nets):
+    cfg = dataclasses.replace(
+        recovery_grid(CTRL_ROUNDS)[1],
+        recovery=RecoveryConfig(traced=True),
+        lossbudget=LossBudgetConfig(enabled=True, budget=0.05, ema=0.5))
+    server = FederatedServer(cfg, data, nets, device=dev)
+    state, _ = server.engine.run_block(server.engine.init_state(
+        server.params), 0, CTRL_ROUNDS)
+    return state
+
+
+def check_controller(data, nets, card):
+    """The loss-budget controller on the recipe's 30% cell, budget 0.05,
+    ema 0.5, 6 rounds: some client escalates, and the levels and loss
+    EMAs equal the CPU's."""
+    zero_counts()
+    on_card = controller_run("cuda", data, nets)
+    want = expect(uplink_fused=CTRL_ROUNDS, netsim_mask=2 * CTRL_ROUNDS,
+                  fec_recover=CTRL_ROUNDS)
+    if counts() != want:
+        fail(f"controller launches {counts()}, expected {want}")
+    on_cpu = controller_run("cpu", data, nets)
+    lv = on_card.bud_level.cpu()
+    if float(lv.max()) < 1.0:
+        fail(f"controller: no client escalated, levels {lv.tolist()}")
+    for name in ("bud_level", "bud_loss"):
+        if not torch.equal(getattr(on_card, name).cpu(),
+                           getattr(on_cpu, name)):
+            fail(f"controller {name} differs between cuda and cpu")
+    print(f"[recovery] controller, budget 0.05 ema 0.5, {CTRL_ROUNDS} rounds:"
+          f" levels per client {lv.int().tolist()} (max "
+          f"{float(lv.max()):.0f}), levels and loss EMAs equal to the "
+          f"cpu's, launches {counts()} | {card}", flush=True)
+
+
+def check_recovery_card_vs_cpu(data, nets):
+    """The 6-cell recovery grid for PARITY_ROUNDS rounds on the card and
+    on the CPU. Free-running, cohorts, both channel chains and the
+    levels must stay equal: they depend on the uniforms alone. Round by
+    round from the CPU's state, the card's params and stale-model buffer
+    must match the CPU's at the parity tolerances."""
+    engs = {dev: SweepEngine.from_configs(recovery_grid(PARITY_ROUNDS),
+                                          data, nets, device=dev)
+            for dev in ("cuda", "cpu")}
+    free = {dev: e.init_states() for dev, e in engs.items()}
+    forced = free["cpu"]
+    worst = 0.0
+    for t in range(PARITY_ROUNDS):
+        logs = {}
+        for dev, eng in engs.items():
+            free[dev], logs[dev] = eng.run_block(free[dev], t, 1)
+        if not np.array_equal(logs["cuda"]["ids"], logs["cpu"]["ids"]):
+            fail(f"recovery grid cohorts differ at round {t}")
+        for name, a, b in (
+                ("channel", free["cuda"].net.channel, free["cpu"].net.channel),
+                ("down", free["cuda"].net.down, free["cpu"].net.down),
+                ("bud_level", free["cuda"].bud_level, free["cpu"].bud_level)):
+            if not torch.equal(a.cpu(), b):
+                fail(f"recovery grid {name} differs between cuda and cpu "
+                     f"at round {t}")
+        on_card, lg = engs["cuda"].run_block(to_device(forced, "cuda"), t,
+                                             1)
+        forced, lc = engs["cpu"].run_block(forced, t, 1)
+        vg, vc = grid_params(on_card, 6), grid_params(forced, 6)
+        np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(on_card.stale_model.cpu().numpy(),
+                                   forced.stale_model.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(lg["loss"], lc["loss"], rtol=1e-5)
+        worst = max(worst, float(np.abs(vg - vc).max()))
+    print(f"[parity] recovery grid, cuda vs cpu, {PARITY_ROUNDS} rounds x 6 "
+          f"cells: cohorts, uplink and downlink channel states and levels "
+          f"equal every round; round by round from the cpu state, max "
+          f"|param diff| {worst:.3e}", flush=True)
+
+
+def run_recovery_phase(card):
+    """The recovery grid's main path, the downlink headline, the
+    controller, and card vs CPU. Returns the main path's launch counts
+    and its rate."""
+    data, nets = fault_inputs()
+    # warm-up of the recovery step; its launches are not counted
+    run_grid(recovery_grid(2), data, nets)
+    torch.cuda.synchronize()
+    cfgs = recovery_grid(REC_ROUNDS)
+    zero_counts()
+    t0 = time.perf_counter()
+    hists = run_grid(cfgs, data, nets)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    want = expect(uplink_fused_batched=REC_ROUNDS, netsim_mask=2 * REC_ROUNDS,
+                  fec_recover=REC_ROUNDS)
+    if got != want:
+        fail(f"recovery grid launches {got}, expected {want}")
+    check_histories("recovery grid", hists, REC_ROUNDS, len(cfgs))
+    rate = len(cfgs) * REC_ROUNDS / secs
+    print(f"[recovery] recovery grid, {len(cfgs)} cells x {REC_ROUNDS} rounds "
+          f"through run_grid: {secs:.3f} s, {rate:.1f} cell-rounds/s, "
+          f"launches {got} | {card}", flush=True)
+    # the cells' final weights, through the sweep run_grid wraps (not
+    # counted): the eval losses and the accuracy run_grid reported
+    states, _ = SweepEngine.from_configs(cfgs, data, nets).run()
+    for i, (cfg, h) in enumerate(zip(cfgs, hists)):
+        mean, bq = eval_losses({k: v[i] for k, v in states.params.items()},
+                               data)
+        if not (math.isfinite(mean) and math.isfinite(bq)):
+            fail(f"recovery grid cell {i}: eval loss not finite")
+        print(f"[recovery]   {cfg.recovery.policy:8s} loss "
+              f"{cfg.tra.loss_rate:.1f}: mean / bottom-quartile eval loss "
+              f"{mean:.4f} / {bq:.4f}, sample acc "
+              f"{h[-1].report.sample_average * 100:.2f}%", flush=True)
+    check_downlink_headline(data, card)
+    check_controller(data, nets, card)
+    check_recovery_card_vs_cpu(data, nets)
+    return got, rate
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
 def median_ms(fn, reps=100, warmup=10):
     """Median of ``reps`` single-call times between two CUDA events,
     each call started on an idle card, so host-side launch cost counts."""
@@ -1099,6 +1373,38 @@ def time_mask(shape, card):
             "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def time_fec(shape, card):
+    """fec_recover at ``shape`` (R, P, G) with about one loss per group."""
+    mask, par, G = fec_inputs(shape, 55, "cuda")
+
+    def kernel():
+        return fc.fec_recover_call(mask, par, group=G)
+
+    def plain():
+        return fec_recover_ref(mask, par, G)
+
+    reps = 20 if shape[1] > 100 else 100
+    p1, k1, k2, p2 = (median_ms(f, reps=reps)
+                      for f in (plain, kernel, kernel, plain))
+    dev_ms = device_ms(kernel, "fec_recover_kernel")
+    R, P, _ = shape
+    out = kernel()
+    n_bytes = sum(t.nbytes for t in (mask, par, out))
+    # per packet: the subtraction and the sum, the compare and the select;
+    # per group: the two compares and their AND
+    bound_ms, bound_by = bound(n_bytes, 4 * R * P + 3 * par.numel())
+    print(f"[time] fec_recover R={R} P={P} G={G}: kernel {k1:.4f}/{k2:.4f} "
+          f"ms, plain {p1:.4f}/{p2:.4f} ms (per call, CUDA events, median "
+          f"of {reps}); no single PyTorch call computes it; kernel device "
+          f"time "
+          + (f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured")
+          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
+    return {"ms": statistics.median([k1, k2]),
+            "plain_ms": statistics.median([p1, p2]), "library_ms": None,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def robust_ops(C, P, F, trim_k):
     """Operations of one robust aggregation, counted per element of
     (C, P, F): the finite test, the sanitising select and the
@@ -1215,6 +1521,24 @@ def profile_fault_grid(card, n=5):
                   wall_ms, n)
 
 
+def profile_recovery_grid(card, n=5):
+    """Device busy share and top kernels over ``n`` recovery-grid rounds
+    (6 cells)."""
+    data, nets = fault_inputs()
+    eng = SweepEngine.from_configs(recovery_grid(n + 2), data, nets)
+    st = eng.init_states()
+    st, _ = eng.run_block(st, 0, 2)                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = eng.run_block(st, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} recovery-grid rounds (6 cells) | {card}", prof,
+                  wall_ms, n)
+
+
 def profile_rounds(card, n=5):
     """Device busy share and top kernels over ``n`` main-path rounds."""
     data, nets = quickstart_inputs()
@@ -1256,6 +1580,8 @@ def main() -> int:
     grid_counts, _, _ = run_grid_phase(card)
     robust_err = check_robust_kernels(dev)
     fault_counts, single_fault_counts, _ = run_fault_phase(card)
+    fec_err = check_fec_kernel(dev)
+    rec_counts, _ = run_recovery_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
     batched_t = time_batched_uplink(GRID_SHAPE, card)
@@ -1266,9 +1592,13 @@ def main() -> int:
     time_robust(ROBUST_TILE_SHAPE, card, batched=False)
     robust_batched_t = time_robust(ROBUST_GRID_SHAPE, card, batched=True)
     time_robust(ROBUST_GRID_TILE_SHAPE, card, batched=True)
+    fec_t = time_fec(FEC_SHAPE, card)
+    for shape in FEC_TILE_SHAPES:
+        time_fec(shape, card)
     profile_rounds(card)
     profile_grid(card)
     profile_fault_grid(card)
+    profile_recovery_grid(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [
@@ -1289,6 +1619,9 @@ def main() -> int:
               "src/repro/kernels/robust_agg/robust_agg.py:238",
               fault_counts["robust_agg_batched"], robust_err["batched"],
               robust_batched_t),
+        entry("fec_recover", "src/repro_torch/csrc/fec_recover.cu",
+              "src/repro/kernels/fec_recover/fec_recover.py:53",
+              rec_counts["fec_recover"], fec_err, fec_t),
     ]}
     print(card)
     print(json.dumps(summary))

@@ -45,15 +45,17 @@ def net_state_from_jax(net, device) -> NetSimState:
 
 def engine_state_from_jax(state, device) -> EngineState:
     """The reference's ``EngineState`` (fields as arrays) -> the port's:
-    params, EF memory, AFL weights, simulator state and the fault
-    model's echo memory, single or stacked along a scenario axis. The
-    reputation memory is carried over only as the (0,) the port holds:
-    the policy that reads it is not ported."""
+    params, EF memory, AFL weights, simulator state (the downlink chain
+    included), the fault model's echo memory, the stale-model buffer and
+    the loss-budget controller's carries, single or stacked along a
+    scenario axis. The reputation memory is carried over only as the
+    (0,) the port holds: the policy that reads it is not ported."""
     rep = np.asarray(state.rep_mem)
     if rep.size:
         raise NotImplementedError(
             "the reputation memory (reputation_aware selection) is not "
             "ported to repro_torch yet")
+
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -62,4 +64,6 @@ def engine_state_from_jax(state, device) -> EngineState:
                                 for k, v in state.params.items()}, device),
         ef_mem=f32(state.ef_mem), lam=f32(state.lam),
         net=net_state_from_jax(state.net, device),
-        echo_mem=f32(state.echo_mem), rep_mem=f32(rep))
+        echo_mem=f32(state.echo_mem), rep_mem=f32(rep),
+        stale_model=f32(state.stale_model), bud_level=f32(state.bud_level),
+        bud_loss=f32(state.bud_loss))

@@ -9,18 +9,30 @@ One round is:
   * PRNG         — one uniform block from ``fold_in(base_key, t)``,
                    keyed on the absolute round index: N selection draws,
                    then C·steps·bs batch draws, then C·P TRA draws, and
-                   under the Gilbert–Elliott channel C·P emission draws
-                   (the reference's layout, bit for bit),
+                   under the Gilbert–Elliott channel C·P emission draws,
+                   with recovery built in C·P ARQ and C·Gn parity draws,
+                   and with the downlink on C·P (i.i.d.) or 2·C·P (GE)
+                   broadcast draws (the reference's layout, bit for bit),
   * selection    — uniform Gumbel-top-k over the eligibility mask,
+  * downlink     — with ``down_channel`` on, the broadcast loses packets
+                   (i.i.d., or each client's second Gilbert–Elliott
+                   chain through ``kernels/netsim_mask``) and each
+                   client fills the holes from its last-received model
+                   (``stale_model``) or with zeros,
   * local train  — FedAvg / q-FedAvg SGD, ``torch.func.vmap``ped over
-                   the cohort,
+                   the cohort, from the shared model or, under downlink
+                   loss, from each client's own effective model,
   * faults       — with ``faults.enabled``, client faults (echo
                    replay, sign flip, NaN failure) on the trained
                    uploads, from ``fold_in(round key, FAULT_FOLD)``,
   * loss channel — the i.i.d. packet-loss mask, or the Gilbert–Elliott
                    chain of each cohort client (``kernels/netsim_mask``,
-                   the CUDA kernel on the card), with the sufficiency
-                   override; then the AR(1) bandwidth step for all N
+                   the CUDA kernel on the card); with recovery built in,
+                   the one_shot / FEC (``kernels/fec_recover``, the CUDA
+                   kernel on the card) / ARQ masks mixed by the policy
+                   one-hot or the loss-budget controller's per-client
+                   level; then the sufficiency override, the AR(1)
+                   bandwidth step for all N
                    clients and the sync deadline drop; with faults on,
                    packet faults (corruption, bit flips) on what is
                    delivered,
@@ -31,22 +43,25 @@ One round is:
                    screen, norm clip and trimmed mean as gates (the
                    robust-aggregation kernel on the card),
   * server step  — FedAvg's weighted mean or q-FedAvg's h-normalised
-                   step.
+                   step; then the stale-model and controller carries.
 
 Scenario-varying inputs ride a ``ScenarioCtx`` argument, never the
 step's closure, so ``core/sweep.py`` can stack S scenarios behind a
 leading axis and ``torch.func.vmap`` the same step over them: the
 kernels batch through their ops' vmap rules. Static structure
 (algorithm, debias mode, cohort size, local steps, batch size, TRA
-on/off, error feedback, the netsim model selection, ``faults.enabled``
-and ``defense.trim_k``) stays in the closure and must be shared across
-a sweep.
+on/off, error feedback, the netsim model selection, ``faults.enabled``,
+``defense.trim_k``, the recovery policy unless traced, the FEC group and
+``lossbudget.enabled``) stays in the closure and must be shared across a
+sweep.
 
 This slice ports the reference's round with: fedavg and qfedavg,
 uniform selection, the sync server, the iid and Gilbert–Elliott
-channels, the AR(1) bandwidth walk, the deadline, and the fault model
-with its defenses. No telemetry, one-shot recovery, no downlink model,
-no reputation memory. ``run_block`` is a
+channels, the AR(1) bandwidth walk, the deadline, the fault model with
+its defenses, the downlink model, the recovery policies and the
+loss-budget controller. No telemetry, no reputation memory. With the
+downlink off, one_shot recovery and the controller off, the step is the
+one of the earlier slices, bit for bit. ``run_block`` is a
 Python loop over the same step ``run_single`` runs, so the block and
 per-round paths agree by construction.
 """
@@ -61,15 +76,18 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.core import client_updates as cu
+from repro_torch.core import lossbudget as bud_mod
 from repro_torch.core.selection import select_from_uniforms
 from repro_torch.core.tra import flatten_clients, unflatten_like
 from repro_torch.data.synthetic import DeviceDataset, stage_on_device
+from repro_torch.kernels.fec_recover import ops as fec_ops
 from repro_torch.kernels.netsim_mask import ops as netsim_ops
 from repro_torch.kernels.robust_agg import ops as robust_ops
 from repro_torch.kernels.uplink_fused import ops as uplink_ops
 from repro_torch.netsim.bandwidth import logbw_round_step
 from repro_torch.netsim.channel import ge_transition_probs
 from repro_torch.netsim import faults as faults_mod
+from repro_torch.netsim import recovery as rec_mod
 from repro_torch.netsim.delivery import (deadline_delivered,
                                          round_upload_seconds)
 from repro_torch.netsim.state import NetSimState, init_net_state
@@ -90,6 +108,14 @@ class EngineState(NamedTuple):
     # the reputation memory of the reputation_aware selection policy,
     # which is not ported: always (0,)
     rep_mem: torch.Tensor   # (0,)
+    # each client's last-received model, the stale fallback under
+    # downlink loss; (0,) unless the downlink is on with the stale fallback
+    stale_model: torch.Tensor  # (N, D) f32, or (0,)
+    # the loss-budget controller's carries (core/lossbudget.py): each
+    # client's recovery level (0 one_shot, 1 fec, 2 arq) and its
+    # realized-loss EMA; (0,) unless lossbudget.enabled
+    bud_level: torch.Tensor    # (N,) f32, or (0,)
+    bud_loss: torch.Tensor     # (N,) f32, or (0,)
 
 
 class ScenarioCtx(NamedTuple):
@@ -117,14 +143,29 @@ class ScenarioCtx(NamedTuple):
     d_screen: torch.Tensor   # () f32 gate: finite-screen quarantine
     d_clip: torch.Tensor     # () f32 clip norm (faults.CLIP_OFF = off)
     d_trim: torch.Tensor     # () f32 gate: trimmed-mean aggregation
+    # downlink knobs (read only when the downlink is on)
+    down_loss: torch.Tensor  # () f32 nominal downlink drop rate
+    down_deadline_s: torch.Tensor  # () f32 broadcast deadline (<= 0 off)
+    # recovery and loss-budget knobs (read only when built in)
+    rec_policy: torch.Tensor  # (3,) f32 one-hot over RECOVERY_POLICIES
+    rec_retries: torch.Tensor  # () f32 ARQ retry budget m
+    rec_backoff: torch.Tensor  # () f32 ARQ per-resend time cost
+    bud_budget: torch.Tensor  # () f32 realized-loss EMA ceiling
+    bud_ema: torch.Tensor    # () f32 EMA coefficient beta
+    bud_div: torch.Tensor    # () f32 update-norm divergence gate
 
 
 # the ScenarioCtx fields that come from NetSimConfig fields of one name
 CTX_NETSIM_FIELDS = ("burst_len", "good_loss", "bad_loss", "bw_rho",
-                     "deadline_s")
+                     "deadline_s", "down_loss", "down_deadline_s")
 # the ScenarioCtx fields of the fault model, from ``fault_knobs``
 CTX_FAULT_FIELDS = ("f_corrupt", "f_cscale", "f_bitflip", "f_fail",
                     "f_flip", "f_echo", "d_screen", "d_clip", "d_trim")
+# the ScenarioCtx fields of recovery and the controller
+CTX_REC_FIELDS = ("rec_policy", "rec_retries", "rec_backoff", "bud_budget",
+                  "bud_ema", "bud_div")
+# every ScenarioCtx field past the data and masks: ``scenario_knobs``
+CTX_KNOB_FIELDS = CTX_NETSIM_FIELDS + CTX_FAULT_FIELDS + CTX_REC_FIELDS
 
 
 def fault_knobs(flt, dfn) -> Dict[str, float]:
@@ -138,6 +179,25 @@ def fault_knobs(flt, dfn) -> Dict[str, float]:
             "d_clip": faults_mod.clip_knob(dfn),
             "d_trim": 1.0 if dfn.trim else 0.0}
 
+
+def scenario_knobs(cfg, ns=None, flt=None, dfn=None, rec=None, bud=None
+                   ) -> Dict[str, np.ndarray]:
+    """The CTX_KNOB_FIELDS values of one scenario as float32 arrays: its
+    netsim, fault, defense, recovery and loss-budget configs, each
+    defaulting to ``cfg``'s."""
+    ns = cfg.netsim if ns is None else ns
+    rec = cfg.recovery if rec is None else rec
+    bud = cfg.lossbudget if bud is None else bud
+    knobs = {f: getattr(ns, f) for f in CTX_NETSIM_FIELDS}
+    knobs.update(fault_knobs(cfg.faults if flt is None else flt,
+                             cfg.defense if dfn is None else dfn))
+    knobs.update(rec_policy=rec_mod.recovery_onehot(rec.policy),
+                 rec_retries=rec.retries, rec_backoff=rec.backoff,
+                 bud_budget=bud.budget, bud_ema=bud.ema,
+                 bud_div=bud.div_gate)
+    return {f: np.asarray(knobs[f], np.float32) for f in CTX_KNOB_FIELDS}
+
+
 # FLConfig fields a scenario may vary without changing the step's
 # structure; everything else must agree across a sweep.
 SWEEP_VARYING_FIELDS = ("seed", "selection", "eligible_ratio")
@@ -146,6 +206,8 @@ SWEEP_VARYING_NETSIM_FIELDS = ("burst_len", "good_loss", "bad_loss",
                                "bw_rho", "deadline_s", "down_loss",
                                "down_deadline_s")
 SWEEP_VARYING_SEL_FIELDS = ("threshold_mbps", "temperature", "explore")
+SWEEP_VARYING_REC_FIELDS = rec_mod.SWEEP_VARYING_REC_FIELDS
+SWEEP_VARYING_BUD_FIELDS = bud_mod.SWEEP_VARYING_BUD_FIELDS
 
 
 def static_signature(cfg):
@@ -162,9 +224,18 @@ def static_signature(cfg):
         cfg.faults,
         **{f: 0.0 for f in faults_mod.SWEEP_VARYING_FAULT_FIELDS})
     dfn = dataclasses.replace(cfg.defense, **faults_mod.DEF_NEUTRAL)
+    rec = dataclasses.replace(
+        cfg.recovery, **{f: 0.0 for f in SWEEP_VARYING_REC_FIELDS})
+    if rec.traced:
+        # the policy rides ScenarioCtx.rec_policy: traced configs share
+        # one step across all three policies
+        rec = dataclasses.replace(rec, policy="one_shot")
+    bud = dataclasses.replace(
+        cfg.lossbudget, **{f: 0.0 for f in SWEEP_VARYING_BUD_FIELDS})
     return dataclasses.replace(cfg, tra=tra, netsim=ns, sel=sel,
-                               faults=flt, defense=dfn, seed=0,
-                               selection="all", eligible_ratio=1.0)
+                               faults=flt, defense=dfn, recovery=rec,
+                               lossbudget=bud, seed=0, selection="all",
+                               eligible_ratio=1.0)
 
 
 def _static_key(cfg):
@@ -182,14 +253,17 @@ def validate_round_config(cfg) -> None:
         raise NotImplementedError(
             f"algo {cfg.algo!r} is not ported to repro_torch yet "
             f"(ported: {ENGINE_ALGOS})")
+    if not cfg.sel.traced and cfg.sel.policy == "recovery_pressure" \
+            and not cfg.lossbudget.enabled:
+        raise ValueError(
+            "selection policy 'recovery_pressure' scores the loss-budget "
+            "controller's escalation state and requires "
+            "lossbudget.enabled=True (without the controller there is no "
+            "pressure signal)")
     if cfg.sel.traced or cfg.sel.policy != "uniform":
         raise NotImplementedError(
             "only the uniform selection policy is ported to repro_torch")
     ns = cfg.netsim
-    if ns.down_channel != "off":
-        raise NotImplementedError(
-            f"netsim down_channel={ns.down_channel!r}: the downlink model "
-            f"is not ported to repro_torch yet")
     if ns.channel != "iid" and not cfg.tra.enabled:
         raise ValueError(
             f"netsim channel={ns.channel!r} models lossy TRA uploads "
@@ -212,6 +286,17 @@ def validate_round_config(cfg) -> None:
             "trimmed-mean aggregation replaces the weighted mean and "
             "cannot compose with per_coord_count's per-coordinate "
             "denominators (use another debias mode, or trim_k=0)")
+    rec = cfg.recovery
+    if (rec.traced or rec.policy != "one_shot") and not cfg.tra.enabled:
+        raise ValueError(
+            "recovery policies act on the lossy TRA uplink mask and "
+            "require tra.enabled=True (with TRA off, uploads are reliable "
+            "and there is nothing to recover)")
+    if cfg.lossbudget.enabled and not rec.traced:
+        raise ValueError(
+            "the loss-budget controller mixes recovery policies per client "
+            "and requires recovery.traced=True (all three policies must be "
+            "built into the step)")
 
 
 def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
@@ -224,6 +309,12 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
     params = {k: v.detach().clone() for k, v in params.items()}
     dev = next(iter(params.values())).device
     D = sum(v.numel() for v in params.values())
+    ns = cfg.netsim if netsim is None else netsim
+
+    def per_client(on, cols=()):
+        return torch.zeros((n_clients, *cols), device=dev) if on \
+            else torch.zeros((0,), device=dev)
+
     if base_key is None:
         base_key = prng.PRNGKey(cfg.seed, device=dev)
     if loss_rate is None:
@@ -231,15 +322,18 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
                                  device=dev)
     return EngineState(
         params=params,
-        ef_mem=torch.zeros((n_clients, D), device=dev)
-        if cfg.error_feedback else torch.zeros((0,), device=dev),
+        ef_mem=per_client(cfg.error_feedback, (D,)),
         lam=torch.ones((n_clients,), device=dev) / n_clients,
-        net=init_net_state(cfg.netsim if netsim is None else netsim,
-                           n_clients, device=dev, base_key=base_key,
+        net=init_net_state(ns, n_clients, device=dev, base_key=base_key,
                            loss_rate=loss_rate, upload_mbps=upload_mbps),
-        echo_mem=torch.zeros((n_clients, D), device=dev)
-        if cfg.faults.enabled else torch.zeros((0,), device=dev),
-        rep_mem=torch.zeros((0,), device=dev))
+        echo_mem=per_client(cfg.faults.enabled, (D,)),
+        rep_mem=torch.zeros((0,), device=dev),
+        # every client starts having received the initial broadcast
+        stale_model=flatten_clients(params, 1).expand(n_clients, D).clone()
+        if ns.down_channel != "off" and ns.down_fallback == "stale"
+        else torch.zeros((0,), device=dev),
+        bud_level=per_client(cfg.lossbudget.enabled),
+        bud_loss=per_client(cfg.lossbudget.enabled))
 
 
 def make_round_step(cfg, cohort: int):
@@ -259,6 +353,8 @@ def make_round_step(cfg, cohort: int):
     local = cu.LOCAL_FNS[algo]
     train = torch.func.vmap(lambda p, x, y: local(p, x, y, hyper),
                             in_dims=(None, 0, 0))
+    # under downlink loss each client trains from its own parameters
+    train_own = torch.func.vmap(lambda p, x, y: local(p, x, y, hyper))
     ns = cfg.netsim
     use_ge = ns.channel == "gilbert_elliott"
     use_bw = ns.bw_ar1
@@ -267,6 +363,17 @@ def make_round_step(cfg, cohort: int):
     # defense.trim_k (the trimmed mean's extent) is static too
     use_faults = cfg.faults.enabled
     trim_k = cfg.defense.trim_k
+    # recovery: the policy (or "traced") and the FEC group are static;
+    # use_rec builds all three policies in, the one_shot default none
+    use_rec = cfg.recovery.traced or cfg.recovery.policy != "one_shot"
+    rec_group = cfg.recovery.group
+    n_pol = len(rec_mod.RECOVERY_POLICIES)
+    use_bud = cfg.lossbudget.enabled
+    # the downlink: channel and fallback are static; "off" broadcasts
+    # the shared model losslessly
+    use_down = ns.down_channel != "off"
+    down_ge = ns.down_channel == "gilbert_elliott"
+    down_stale = ns.down_fallback == "stale"
 
     def step(ctx: ScenarioCtx, state: EngineState, t: int):
         dd = ctx.data
@@ -279,13 +386,33 @@ def make_round_step(cfg, cohort: int):
         # the GE channel's emission draws are a second (C, P) block
         # after the transition draws
         n_tra = 2 * C * P if use_ge else C * P
+        # recovery and downlink blocks come after. Threefry uniforms are
+        # not prefix-stable in the total count: the default steps stay
+        # bitwise because their total is unchanged, and a traced
+        # recovery cell equals its static run because both draw the ARQ
+        # and the parity blocks.
+        gn = rec_mod.fec_groups(P, rec_group) if use_rec else 0
+        n_rec = C * P + C * gn if use_rec else 0
+        # the broadcast is the model, which FedAvg and q-FedAvg upload
+        # too: P packets each way
+        P_dn = P
+        n_down = (2 * C * P_dn if down_ge else C * P_dn) if use_down else 0
         # one threefry invocation covers the whole round
         key = prng.fold_in(ctx.base_key, t)
-        u_all = prng.uniform(key, (N + n_batch + n_tra,),
+        u_all = prng.uniform(key, (N + n_batch + n_tra + n_rec + n_down,),
                              minval=1e-12, maxval=1.0)
         u_sel = u_all[:N]
         u_idx = u_all[N:N + n_batch].reshape(C, steps, bs)
         u_tra = u_all[N + n_batch:N + n_batch + C * P].reshape(C, P)
+        off = N + n_batch + n_tra
+        if use_rec:
+            u_arq = u_all[off:off + C * P].reshape(C, P)
+            u_par = u_all[off + C * P:off + n_rec].reshape(C, gn)
+            off += n_rec
+        if use_down:
+            u_dt = u_all[off:off + C * P_dn].reshape(C, P_dn)
+            u_de = u_all[off + C * P_dn:off + 2 * C * P_dn] \
+                .reshape(C, P_dn) if down_ge else None
 
         ids = select_from_uniforms(u_sel, None, ctx.eligible, C)
         counts = dd.counts[ids]                              # (C,)
@@ -300,7 +427,44 @@ def make_round_step(cfg, cohort: int):
         weights = w / w.sum()
         suff = ctx.sufficient[ids]
 
-        uploads, aux = train(params, X, Y)
+        # downlink: the broadcast model loses packets on each client's
+        # channel, and a client fills a lost packet's coordinates from
+        # its last-received model ("stale") or with zeros, then trains
+        # from that effective model
+        net_down = state.net.down
+        if use_down:
+            if down_ge:
+                dp_gb, dp_bg = ge_transition_probs(
+                    ctx.down_loss, ctx.burst_len, ctx.good_loss,
+                    ctx.bad_loss)
+                dmask, ds_fin = netsim_ops.ge_packet_mask(
+                    u_dt, u_de, net_down[ids], dp_gb, dp_bg, ctx.good_loss,
+                    ctx.bad_loss)
+                net_down = net_down.index_copy(0, ids, ds_fin)
+            else:
+                dmask = (u_dt >= ctx.down_loss).float()
+            if use_bw or use_dl:
+                # broadcast deadline: the whole model misses when pushing
+                # P_dn packets at the client's carried bandwidth overruns
+                # it; <= 0 disables
+                dsecs = round_upload_seconds(
+                    P_dn, Fp, torch.exp(state.net.logbw[ids]),
+                    ctx.down_loss,
+                    torch.zeros((C,), dtype=torch.bool, device=u_dt.device))
+                dok = torch.where(ctx.down_deadline_s > 0.0,
+                                  deadline_delivered(dsecs,
+                                                     ctx.down_deadline_s),
+                                  1.0)
+                dmask = dmask * dok[:, None]
+            coord_dn = dmask[:, :, None].expand(C, P_dn, Fp) \
+                .reshape(C, P_dn * Fp)[:, :D_up]
+            stale_rows = state.stale_model[ids] if down_stale \
+                else torch.zeros((C, D_up), device=u_dt.device)
+            eff_vec = coord_dn * old_vec[None, :] \
+                + (1.0 - coord_dn) * stale_rows
+            uploads, aux = train_own(unflatten_like(eff_vec, params), X, Y)
+        else:
+            uploads, aux = train(params, X, Y)
         flat = flatten_clients(uploads, C)                   # (C, D)
 
         # client faults: what the cohort actually uploads. Their own fold
@@ -319,24 +483,58 @@ def make_round_step(cfg, cohort: int):
             else ctx.loss_rate[ids]
         lr_col = lr_c if lr_c.dim() == 0 else lr_c[:, None]
         net_channel, net_logbw = state.net.channel, state.net.logbw
+
+        def apply_recovery(base_mask):
+            """All three policies on the channel mask, mixed by a 0/1
+            one-hot (1*x + 0*y + 0*z == x bitwise for finite masks): the
+            scenario's policy, or the controller's per-client level.
+            Returns the mask, the one-hot and the realized loss."""
+            par_mask = rec_mod.fec_parity_mask(u_par, lr_col)
+            mask_fec = fec_ops.fec_recover(base_mask, par_mask,
+                                           group=rec_group)
+            mask_arq = rec_mod.arq_residual_mask(base_mask, u_arq, lr_col,
+                                                 ctx.rec_retries)
+            oh = bud_mod.controller_policy_onehot(state.bud_level[ids]) \
+                if use_bud else ctx.rec_policy[None, :].expand(C, n_pol)
+            mask_eff = oh[:, 0:1] * base_mask + oh[:, 1:2] * mask_fec \
+                + oh[:, 2:3] * mask_arq
+            # realized loss 1 - mean: as XLA compiles the reference, the
+            # mean multiplies the exact count by the f32 reciprocal of P,
+            # fused with the subtraction (one rounding, from float64)
+            realized = (1.0 - base_mask.sum(dim=1).double()
+                        * float(np.float32(1.0 / P))).float()
+            return mask_eff, oh, realized
+
+        rec_oh = realized_c = None
         if use_ge:
             # bursty loss: each cohort client's channel walks P packet
             # steps and its final state goes back into the carry.
             # Sufficient clients retransmit (all-ones mask), but their
             # channel still advances.
-            u_emit = u_all[N + n_batch + C * P:].reshape(C, P)
+            u_emit = u_all[N + n_batch + C * P:N + n_batch + n_tra] \
+                .reshape(C, P)
             p_gb, p_bg = ge_transition_probs(
                 lr_c, ctx.burst_len, ctx.good_loss, ctx.bad_loss)
             ge_mask, s_fin = netsim_ops.ge_packet_mask(
                 u_tra, u_emit, net_channel[ids], p_gb, p_bg,
                 ctx.good_loss, ctx.bad_loss)
             net_channel = net_channel.index_copy(0, ids, s_fin)
+            if use_rec:
+                ge_mask, rec_oh, realized_c = apply_recovery(ge_mask)
             pkt_mask = torch.where(suff.bool()[:, None], 1.0, ge_mask)
+        elif tra_cfg.enabled and use_rec:
+            mask_eff, rec_oh, realized_c = apply_recovery(
+                (u_tra >= lr_col).float())
+            pkt_mask = torch.where(suff.bool()[:, None], 1.0, mask_eff)
         elif tra_cfg.enabled:
             lost = (u_tra < lr_col) & ~suff.bool()[:, None]
             pkt_mask = 1.0 - lost.float()
         else:
             pkt_mask = torch.ones((C, P), device=xp.device)
+        # with recovery built in, the group_rate debias divides by the
+        # post-recovery residual rate; a one_shot row mixes to r exactly
+        lr_deb = rec_mod.residual_rate_mixed(
+            rec_oh, lr_c, ctx.rec_retries, rec_group) if use_rec else lr_c
 
         if use_bw:
             # time passes for every client: one AR(1) step on all N
@@ -348,8 +546,19 @@ def make_round_step(cfg, cohort: int):
             # weight stays in the denominator
             retransmit = suff.bool() if tra_cfg.enabled \
                 else torch.ones((C,), dtype=torch.bool, device=xp.device)
-            secs = round_upload_seconds(P, Fp, torch.exp(net_logbw[ids]),
-                                        lr_c, retransmit)
+            if use_rec:
+                # each policy pays its airtime: FEC 1 + 1/G sends, ARQ
+                # the expected retries; retransmitters pay 1/(1-r)
+                sends_pol = rec_oh[:, 0] * 1.0 \
+                    + rec_oh[:, 1] * rec_mod.fec_sends(rec_group) \
+                    + rec_oh[:, 2] * rec_mod.arq_sends(
+                        lr_c, ctx.rec_retries, ctx.rec_backoff)
+                secs = rec_mod.recovery_upload_seconds(
+                    P, Fp, torch.exp(net_logbw[ids]), lr_c, retransmit,
+                    sends_pol)
+            else:
+                secs = round_upload_seconds(
+                    P, Fp, torch.exp(net_logbw[ids]), lr_c, retransmit)
             delivered = deadline_delivered(secs, ctx.deadline_s)
             pkt_mask = pkt_mask * delivered[:, None]
             arrival = delivered
@@ -377,6 +586,8 @@ def make_round_step(cfg, cohort: int):
             mult, want_ssq = fq, True
         else:
             w_agg, mult, want_ssq = weights, None, False
+        # the controller reads the masked norms as its divergence signal
+        want_ssq = want_ssq or use_bud
 
         if use_faults:
             # defended uplink: finite-screen quarantine (bad packets as if
@@ -387,14 +598,14 @@ def make_round_step(cfg, cohort: int):
                 screen=ctx.d_screen, clip_norm=ctx.d_clip,
                 trim_gate=ctx.d_trim, trim_k=trim_k,
                 ef_rows=state.ef_mem[ids] if ef else None,
-                sufficient=suff, loss_rate=lr_c, mult=mult,
+                sufficient=suff, loss_rate=lr_deb, mult=mult,
                 want_ssq=want_ssq)
             agg, new_ef_rows, ssq = rob.agg, rob.ef_rows, rob.ssq
         else:
             agg, new_ef_rows, ssq = uplink_ops.uplink_round(
                 xp, pkt_mask, w_agg, mode=debias, d_up=D_up,
                 ef_rows=state.ef_mem[ids] if ef else None, kept=kept,
-                sufficient=suff, loss_rate=lr_c, mult=mult,
+                sufficient=suff, loss_rate=lr_deb, mult=mult,
                 want_ssq=want_ssq)
         new_ef = state.ef_mem.index_copy(0, ids, new_ef_rows) if ef \
             else state.ef_mem
@@ -411,6 +622,20 @@ def make_round_step(cfg, cohort: int):
         # the echo memory records what each client genuinely computed
         echo_new = state.echo_mem.index_copy(0, ids, flat_clean) \
             if use_faults else state.echo_mem
+        # after this round a client's local model is its effective model:
+        # what it resumes from when its next broadcast drops packets
+        stale_new = state.stale_model.index_copy(0, ids, eff_vec) \
+            if use_down and down_stale else state.stale_model
+        # the controller: the policy used this round was read from the
+        # carried level; the level and EMA written here drive the next
+        bud_level, bud_loss = state.bud_level, state.bud_loss
+        if use_bud:
+            lv, ema_new, _ = bud_mod.controller_update(
+                bud_level[ids], bud_loss[ids], realized_c, ssq,
+                budget=ctx.bud_budget, beta=ctx.bud_ema,
+                div_gate=ctx.bud_div)
+            bud_level = bud_level.index_copy(0, ids, lv)
+            bud_loss = bud_loss.index_copy(0, ids, ema_new)
         logs = {"loss": aux["loss0"].mean(), "ids": ids}
         if use_faults:
             # per-cohort-slot quarantined-packet counts
@@ -418,9 +643,10 @@ def make_round_step(cfg, cohort: int):
         if use_dl:
             # per-cohort-slot arrival: 1 landed on time, 0 dropped
             logs["arrival"] = arrival
-        net = NetSimState(net_channel, net_logbw, state.net.down)
+        net = NetSimState(net_channel, net_logbw, net_down)
         return EngineState(new_params, new_ef, state.lam, net, echo_new,
-                           state.rep_mem), logs
+                           state.rep_mem, stale_new, bud_level,
+                           bud_loss), logs
 
     return step
 
@@ -467,10 +693,8 @@ class RoundScanEngine:
             sufficient=torch.tensor(np.asarray(sufficient, np.float32),
                                     device=dev),
             data=self.dd,
-            **{f: torch.tensor(getattr(cfg.netsim, f), dtype=torch.float32,
-                               device=dev) for f in CTX_NETSIM_FIELDS},
-            **{f: torch.tensor(v, dtype=torch.float32, device=dev)
-               for f, v in fault_knobs(cfg.faults, cfg.defense).items()})
+            **{f: torch.tensor(v, device=dev)
+               for f, v in scenario_knobs(cfg).items()})
 
     def init_state(self, params) -> EngineState:
         return init_engine_state(self.cfg, params, self.n_clients,

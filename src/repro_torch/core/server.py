@@ -26,6 +26,7 @@ from repro_torch import prng
 from repro_torch.core import tra as tra_mod
 from repro_torch.core.engine import RoundScanEngine
 from repro_torch.core.fairness import FairnessReport, fairness_report
+from repro_torch.core.lossbudget import LossBudgetConfig
 from repro_torch.core.mlp import mlp_accuracy, mlp_init
 from repro_torch.core.selection import SelectionConfig
 from repro_torch.core.sweep import SweepEngine
@@ -34,6 +35,7 @@ from repro_torch.data.synthetic import FederatedDataset, padded_eval_set
 from repro_torch.device import resolve_device
 from repro_torch.netsim.config import NetSimConfig
 from repro_torch.netsim.faults import DefenseConfig, FaultConfig
+from repro_torch.netsim.recovery import RecoveryConfig
 from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
                                        sample_networks)
 
@@ -41,8 +43,8 @@ from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
 @dataclasses.dataclass
 class FLConfig:
     """The reference's top-level run configuration. Sub-configs that
-    later slices bring (server modes, telemetry, recovery, loss budget)
-    are not part of the port yet."""
+    later slices bring (server modes, telemetry) are not part of the
+    port yet."""
     algo: str = "fedavg"              # fedavg|qfedavg (ported)
     n_rounds: int = 100
     clients_per_round: int = 10
@@ -64,6 +66,15 @@ class FLConfig:
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
     defense: DefenseConfig = dataclasses.field(
         default_factory=DefenseConfig)
+    # loss-recovery policy family (netsim/recovery.py): one_shot (TRA,
+    # the default), fec or arq; traced=True makes the policy a scenario
+    # knob
+    recovery: RecoveryConfig = dataclasses.field(
+        default_factory=RecoveryConfig)
+    # adaptive loss-budget controller (core/lossbudget.py); off by
+    # default, and it needs recovery.traced
+    lossbudget: LossBudgetConfig = dataclasses.field(
+        default_factory=LossBudgetConfig)
     # algorithm hyper-parameters (paper / source-code defaults)
     q: float = 1.0                    # q-FedAvg fairness exponent
     # q-FedAvg Lipschitz estimate (1.0 restores the paper's behaviour

@@ -3,8 +3,10 @@
 A *scenario* is everything that may vary without changing the step's
 structure: the PRNG seed, the TRA loss rate, the eligibility and
 sufficiency masks, the dataset draw, the netsim knobs (burst length,
-emission rates, bandwidth correlation, deadline), the fault rates and
-the defense gates. ``SweepEngine``
+emission rates, bandwidth correlation, deadline, downlink loss rate and
+deadline), the fault rates and the defense gates, the ARQ retries and
+backoff, the recovery policy itself when traced, and the loss-budget
+controller's budget, EMA and divergence gate. ``SweepEngine``
 stacks S scenarios behind a leading axis: ``ScenarioCtx`` fields become
 (S, ...) tensors, per-scenario ``EngineState``s are stacked, and the
 data is one shared (N, M, D) set or a stacked (S, N, M, D) one.
@@ -12,12 +14,15 @@ data is one shared (N, M, D) set or a stacked (S, N, M, D) one.
 runs then plays every scenario's round at once: each PyTorch launch
 carries S scenarios' work, and the kernels batch through their ops'
 vmap rules — one batched uplink (or, with faults on, robust-aggregation)
-launch and one Gilbert–Elliott mask launch per round for the whole grid.
+launch, one Gilbert–Elliott mask launch per chain (uplink, downlink) and
+one FEC repair launch per round for the whole grid.
 
 Static structure (algorithm, debias mode, cohort size, local steps,
 batch size, TRA on/off, error feedback, netsim model selection,
-``faults.enabled``, ``defense.trim_k``) must be shared across a sweep;
-``from_configs`` checks that and raises on a mixed grid.
+``faults.enabled``, ``defense.trim_k``, the recovery policy unless
+traced, the FEC group, ``lossbudget.enabled``) must be shared across a
+sweep; the constructor and ``from_configs`` check that and raise on a
+mixed grid.
 """
 from __future__ import annotations
 
@@ -29,14 +34,17 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import tra as tra_mod
-from repro_torch.core.engine import (CTX_FAULT_FIELDS, CTX_NETSIM_FIELDS,
+from repro_torch.core.engine import (CTX_KNOB_FIELDS,
+                                     SWEEP_VARYING_BUD_FIELDS,
                                      SWEEP_VARYING_FIELDS,
                                      SWEEP_VARYING_NETSIM_FIELDS,
+                                     SWEEP_VARYING_REC_FIELDS,
                                      SWEEP_VARYING_SEL_FIELDS,
                                      SWEEP_VARYING_TRA_FIELDS, EngineState,
-                                     ScenarioCtx, fault_knobs,
-                                     init_engine_state, make_round_step,
+                                     ScenarioCtx, init_engine_state,
+                                     make_round_step, scenario_knobs,
                                      static_signature)
+from repro_torch.core.lossbudget import LossBudgetConfig
 from repro_torch.core.mlp import mlp_init
 from repro_torch.data.synthetic import (DeviceDataset, FederatedDataset,
                                         stage_on_device,
@@ -46,6 +54,7 @@ from repro_torch.netsim.config import NetSimConfig
 from repro_torch.netsim.faults import (SWEEP_VARYING_DEF_FIELDS,
                                        SWEEP_VARYING_FAULT_FIELDS,
                                        DefenseConfig, FaultConfig)
+from repro_torch.netsim.recovery import RecoveryConfig
 from repro_torch.network.trace import (eligible_mask_device,
                                        sample_networks,
                                        stage_network_scenarios)
@@ -70,6 +79,13 @@ class Scenario:
     # config's); faults.enabled and defense.trim_k must agree
     faults: Optional[FaultConfig] = None
     defense: Optional[DefenseConfig] = None
+    # this cell's recovery knobs (None -> the sweep config's): retries
+    # and backoff may vary, the policy only with recovery.traced; traced
+    # and group must agree
+    recovery: Optional[RecoveryConfig] = None
+    # this cell's loss-budget knobs (None -> the sweep config's);
+    # enabled must agree
+    lossbudget: Optional[LossBudgetConfig] = None
 
 
 def scenario_from_config(cfg, data: FederatedDataset,
@@ -89,7 +105,8 @@ def scenario_from_config(cfg, data: FederatedDataset,
                     sufficient=sufficient, eligible=eligible, data=data,
                     netsim=cfg.netsim, packet_loss=nets.packet_loss,
                     upload_mbps=nets.upload_mbps, faults=cfg.faults,
-                    defense=cfg.defense)
+                    defense=cfg.defense, recovery=cfg.recovery,
+                    lossbudget=cfg.lossbudget)
 
 
 def _netsim_models(ns: NetSimConfig):
@@ -152,6 +169,26 @@ class SweepEngine:
                     f"static fault field (faults.enabled, defense.trim_k); "
                     f"only faults.{SWEEP_VARYING_FAULT_FIELDS} and "
                     f"defense.{SWEEP_VARYING_DEF_FIELDS} may vary per cell")
+        recs = [s.recovery if s.recovery is not None else cfg.recovery
+                for s in self.scenarios]
+        for i, rc in enumerate(recs):
+            if rc.traced != cfg.recovery.traced \
+                    or rc.group != cfg.recovery.group \
+                    or not (cfg.recovery.traced
+                            or rc.policy == cfg.recovery.policy):
+                raise ValueError(
+                    f"scenario {i} differs from the sweep config in a "
+                    f"static recovery field (policy, traced, group); only "
+                    f"recovery.{SWEEP_VARYING_REC_FIELDS} may vary per "
+                    f"cell (the policy itself only with recovery.traced)")
+        buds = [s.lossbudget if s.lossbudget is not None else cfg.lossbudget
+                for s in self.scenarios]
+        for i, bc in enumerate(buds):
+            if bc.enabled != cfg.lossbudget.enabled:
+                raise ValueError(
+                    f"scenario {i} differs from the sweep config in the "
+                    f"static field lossbudget.enabled; only lossbudget."
+                    f"{SWEEP_VARYING_BUD_FIELDS} may vary per cell")
         if cfg.tra.per_client_loss:
             if any(s.packet_loss is None for s in self.scenarios):
                 raise ValueError("tra.per_client_loss needs per-client "
@@ -167,12 +204,8 @@ class SweepEngine:
                              "per-client speeds on every Scenario "
                              "(upload_mbps)")
         self._step = make_round_step(cfg, self.cohort)   # validates cfg
-
-        def knob(f):
-            return torch.tensor([getattr(ns, f) for ns in nsims],
-                                dtype=torch.float32, device=dev)
-
-        fknobs = [fault_knobs(fl, df) for fl, df in zip(flts, dfns)]
+        knobs = [scenario_knobs(cfg, *per) for per in
+                 zip(nsims, flts, dfns, recs, buds)]
 
         self.ctx = ScenarioCtx(
             base_key=torch.stack([prng.PRNGKey(s.seed, device=dev)
@@ -184,15 +217,14 @@ class SweepEngine:
             sufficient=torch.tensor(np.stack(
                 [np.asarray(s.sufficient, np.float32)
                  for s in self.scenarios]), device=dev),
-            data=self.dd, **{f: knob(f) for f in CTX_NETSIM_FIELDS},
-            **{f: torch.tensor([k[f] for k in fknobs], dtype=torch.float32,
-                               device=dev) for f in CTX_FAULT_FIELDS})
+            data=self.dd,
+            **{f: torch.tensor(np.stack([k[f] for k in knobs]), device=dev)
+               for f in CTX_KNOB_FIELDS})
         data_dim = 0 if self.data_batched else None
         ctx_dims = ScenarioCtx(
             base_key=0, loss_rate=0, eligible=0, sufficient=0,
             data=DeviceDataset(data_dim, data_dim, data_dim),
-            **{f: 0 for f in CTX_NETSIM_FIELDS},
-            **{f: 0 for f in CTX_FAULT_FIELDS})
+            **{f: 0 for f in CTX_KNOB_FIELDS})
         self._vstep = torch.func.vmap(self._step,
                                       in_dims=(ctx_dims, 0, None))
 
@@ -220,8 +252,11 @@ class SweepEngine:
                     f"{SWEEP_VARYING_TRA_FIELDS}, netsim."
                     f"{SWEEP_VARYING_NETSIM_FIELDS}, sel."
                     f"{SWEEP_VARYING_SEL_FIELDS}, faults."
-                    f"{SWEEP_VARYING_FAULT_FIELDS} and defense."
-                    f"{SWEEP_VARYING_DEF_FIELDS} may vary in one sweep")
+                    f"{SWEEP_VARYING_FAULT_FIELDS}, defense."
+                    f"{SWEEP_VARYING_DEF_FIELDS}, recovery."
+                    f"{SWEEP_VARYING_REC_FIELDS} (and the policy when "
+                    f"traced) and lossbudget.{SWEEP_VARYING_BUD_FIELDS} may "
+                    f"vary in one sweep")
         if isinstance(datas, FederatedDataset):
             datas = [datas] * S
         if len(datas) != S:
@@ -244,7 +279,8 @@ class SweepEngine:
                          eligible=eligible[i], data=d, netsim=c.netsim,
                          packet_loss=n.packet_loss,
                          upload_mbps=n.upload_mbps, faults=c.faults,
-                         defense=c.defense)
+                         defense=c.defense, recovery=c.recovery,
+                         lossbudget=c.lossbudget)
                 for i, (c, d, n) in enumerate(zip(cfgs, datas, nets))]
         return cls(cfgs[0], scen, device=device)
 
@@ -291,14 +327,12 @@ class SweepEngine:
 
 def _stack_states(states: Sequence[EngineState]) -> EngineState:
     s0 = states[0]
-
-    def stack(name):
-        return torch.stack([getattr(s, name) for s in states])
-
+    fields = {name: torch.stack([getattr(s, name) for s in states])
+              for name in EngineState._fields
+              if name not in ("params", "net")}
     return EngineState(
         params={k: torch.stack([s.params[k] for s in states])
                 for k in s0.params},
-        ef_mem=stack("ef_mem"), lam=stack("lam"),
         net=type(s0.net)(*(torch.stack(list(f)) for f in
                            zip(*(s.net for s in states)))),
-        echo_mem=stack("echo_mem"), rep_mem=stack("rep_mem"))
+        **fields)

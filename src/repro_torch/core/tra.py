@@ -82,11 +82,14 @@ def flatten_clients(tree: Dict[str, torch.Tensor], n_clients: int
 
 def unflatten_like(vec: torch.Tensor, template: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-    """(D,) -> parameter dict shaped like ``template``."""
+    """(..., D) -> parameter dict shaped like ``template``, each leaf
+    with the leading dims of ``vec`` (a (C, D) block gives per-client
+    parameters)."""
     out, off = {}, 0
+    lead = tuple(vec.shape[:-1])
     for k in sorted(template):
         leaf = template[k]
-        out[k] = vec[off:off + leaf.numel()].reshape(leaf.shape).to(
-            leaf.dtype)
+        out[k] = vec[..., off:off + leaf.numel()].reshape(
+            lead + tuple(leaf.shape)).to(leaf.dtype)
         off += leaf.numel()
     return out

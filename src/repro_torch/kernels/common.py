@@ -1,6 +1,7 @@
 """Division-guard epsilons shared by the port's kernels, their plain
 versions and the engine: the single source, so a kernel and its plain
-version can never drift apart on a guard."""
+version can never drift apart on a guard. Also the scenario-axis fold
+that the row-wise kernels' vmap rules share."""
 from __future__ import annotations
 
 # Guard for aggregate denominators (sums of client weights or of masked
@@ -11,3 +12,12 @@ DENOM_EPS = 1e-12
 # Guard for rate rescales (1/kept_c and 1/(1 - loss_rate)): caps the
 # debias multiplier at 1e6 instead of blowing a fully dropped client up.
 RATE_EPS = 1e-6
+
+
+def fold_rows(x, in_dim, batch: int):
+    """A vmap rule's operand with the scenario axis first (broadcast when
+    the operand has none), folded into the row axis: (B, R, ...) ->
+    (B*R, ...), so one launch serves the whole batch."""
+    x = x.unsqueeze(0).expand(batch, *x.shape) if in_dim is None \
+        else x.movedim(in_dim, 0)
+    return x.reshape(batch * x.shape[1], *x.shape[2:])

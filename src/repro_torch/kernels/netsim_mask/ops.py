@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.common import fold_rows
 from repro_torch.kernels.netsim_mask.netsim_mask import netsim_mask_call
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref
 
@@ -33,18 +34,10 @@ def _netsim_mask_cuda(u_t, u_e, s0, p_gb, p_bg, h_g, h_b):
                               (u_t, u_e, s0, p_gb, p_bg, h_g, h_b)))
 
 
-def _to_rows(x, in_dim, batch):
-    """Scenario axis first (broadcast when the operand has none), then
-    folded into the row axis."""
-    x = x.unsqueeze(0).expand(batch, *x.shape) if in_dim is None \
-        else x.movedim(in_dim, 0)
-    return x.reshape(batch * x.shape[1], *x.shape[2:])
-
-
 @netsim_mask_op.register_vmap
 def _netsim_mask_vmap(info, in_dims, *args):
     B = info.batch_size
-    rows = [_to_rows(a, d, B) for a, d in zip(args, in_dims)]
+    rows = [fold_rows(a, d, B) for a, d in zip(args, in_dims)]
     mask, s_fin = netsim_mask_op(*rows)
     return (mask.reshape(B, -1, mask.shape[-1]), s_fin.reshape(B, -1)), \
         (0, 0)

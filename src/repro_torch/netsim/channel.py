@@ -32,7 +32,7 @@ from repro_torch.kernels.common import RATE_EPS
 # fold_in tag of the stationary channel-state draw: far outside the
 # round-index range, so it never collides with a round key
 CH_INIT_FOLD = 0x4E455453  # "NETS"
-# the downlink chain's own tag (kept for the downlink slice)
+# fold_in tag of the downlink chain's stationary state draw
 DOWN_INIT_FOLD = 0x444F574E  # "DOWN"
 
 

@@ -14,9 +14,14 @@ knobs:
     grid over them: that is what makes the burst-length x loss-rate
     grid one batched program.
 
-The downlink fields are kept so configurations read the same; the port
-has no downlink model yet, and the engine raises
-``NotImplementedError`` for ``down_channel`` other than ``"off"``.
+The downlink (server -> client broadcast) is packetised like the
+uplink. ``down_channel`` is static (the Gilbert–Elliott downlink reuses
+``burst_len``, ``good_loss`` and ``bad_loss``) and so is
+``down_fallback``: lost broadcast packets fall back to the client's
+last-received coordinates ("stale", the ``stale_model`` carry) or to
+zero ("zero", the naive baseline). ``down_loss`` and
+``down_deadline_s`` are scenario knobs. The broadcast deadline reads
+the bandwidth carry, so it acts only with ``bw_ar1`` or ``deadline``.
 """
 from __future__ import annotations
 
@@ -40,11 +45,12 @@ class NetSimConfig:
     # -- deadline / straggler delivery -------------------------------------
     deadline: bool = False      # drop whole uploads that miss the deadline
     deadline_s: float = 60.0    # per-round upload deadline (seconds)
-    # -- downlink (server -> client broadcast) loss: not ported yet ----------
+    # -- downlink (server -> client broadcast) loss --------------------------
     down_channel: str = "off"   # "off" | "iid" | "gilbert_elliott"
     down_fallback: str = "stale"  # "stale" | "zero"
     down_loss: float = 0.1      # nominal downlink per-packet drop rate
-    down_deadline_s: float = 0.0  # broadcast deadline (seconds), <= 0 off
+    down_deadline_s: float = 0.0  # broadcast deadline (seconds), <= 0 off;
+    #                               needs bw_ar1 or deadline to act
 
     def __post_init__(self):
         if self.channel not in CHANNELS:

@@ -2,7 +2,7 @@
 
 Under the sweep engine every field gains a leading scenario axis. A
 field is a zero-size tensor when its model is off, so the ``iid``
-default carries two (0,) tensors through an otherwise unchanged step.
+default carries three (0,) tensors through an otherwise unchanged step.
 """
 from __future__ import annotations
 
@@ -10,15 +10,20 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.netsim.bandwidth import init_logbw
-from repro_torch.netsim.channel import init_channel_state
+from repro_torch.netsim.channel import (DOWN_INIT_FOLD, init_channel_state,
+                                        stationary_bad_frac)
 from repro_torch.netsim.config import NetSimConfig
 
 
 class NetSimState(NamedTuple):
     channel: torch.Tensor  # (N,) int32 GE states (0=GOOD, 1=BAD), or (0,)
     logbw: torch.Tensor    # (N,) f32 log upload Mbps levels, or (0,)
-    down: torch.Tensor     # downlink GE states: (0,) until that slice
+    # downlink GE states: a second, independent chain per client (the
+    # broadcast fades apart from the uplink); (0,) unless
+    # down_channel == "gilbert_elliott"
+    down: torch.Tensor     # (N,) int32, or (0,)
 
 
 def init_net_state(ns: NetSimConfig, n_clients: int, *, device,
@@ -46,4 +51,12 @@ def init_net_state(ns: NetSimConfig, n_clients: int, *, device,
                 "upload speeds (pass nets.upload_mbps through the engine)")
         logbw = init_logbw(upload_mbps, device=device)
     down = torch.zeros((0,), dtype=torch.int32, device=device)
+    if ns.down_channel == "gilbert_elliott":
+        if base_key is None:
+            raise ValueError("gilbert_elliott downlink needs base_key")
+        # stationary draw at the nominal downlink rate, off its own fold
+        pi_b = stationary_bad_frac(ns.down_loss, ns.good_loss, ns.bad_loss)
+        u = prng.uniform(prng.fold_in(base_key, DOWN_INIT_FOLD),
+                         (n_clients,))
+        down = (u < pi_b.to(u.device)).to(torch.int32)
     return NetSimState(channel=channel, logbw=logbw, down=down)

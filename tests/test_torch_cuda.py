@@ -16,7 +16,11 @@ positions, EF bitwise (a NaN compared by position: the card writes its
 own NaN payload); batched against S single launches bitwise; with the
 gates off, bitwise the uplink kernel on finite inputs; a defended grid
 round on the card against the CPU: cohorts and quarantine counts
-bitwise, params rtol 1e-4 / atol 1e-5.
+bitwise, params rtol 1e-4 / atol 1e-5. The FEC repair kernel against its
+plain version bitwise (0/1 masks, exact sums), its vmap fold one launch
+and bitwise S single launches; recovery grid rounds on the card against
+the CPU: cohorts and both channel chains bitwise, params rtol 1e-4 /
+atol 1e-5.
 """
 import dataclasses
 
@@ -29,6 +33,9 @@ from repro_torch.core.sweep import SweepEngine
 from repro_torch.core.tra import DEBIAS_MODES, TRAConfig
 from repro_torch.data.synthetic import generate_synthetic
 from repro_torch.kernels.common import DENOM_EPS
+from repro_torch.kernels.fec_recover import fec_recover as t_fc
+from repro_torch.kernels.fec_recover import ops as t_fec_ops
+from repro_torch.kernels.fec_recover.ref import fec_recover_ref
 from repro_torch.kernels.netsim_mask import netsim_mask as t_nm
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref
 from repro_torch.kernels.robust_agg import robust_agg as t_ra
@@ -39,6 +46,7 @@ from repro_torch.kernels.uplink_fused.ref import uplink_ref
 from repro_torch.netsim.channel import ge_transition_probs
 from repro_torch.netsim.config import NetSimConfig
 from repro_torch.netsim.faults import DefenseConfig, FaultConfig, flip_bit_op
+from repro_torch.netsim.recovery import RecoveryConfig
 from repro_torch.network.trace import ClientNetworks
 
 S, C, P, F = 3, 6, 16, 32
@@ -348,3 +356,81 @@ def test_cuda_fault_grid_round_matches_cpu(dev):
     np.testing.assert_array_equal(lg["ids"], lc["ids"])
     np.testing.assert_array_equal(lg["quarantine"], lc["quarantine"])
     np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5)
+
+
+def _fec_case(R, P_, G, seed, dev):
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((R, P_)) > 1.0 / min(G, P_)).astype(np.float32)
+    par = (rng.random((R, -(-P_ // G))) > 0.3).astype(np.float32)
+    return torch.tensor(mask, device=dev), torch.tensor(par, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,P_,G", [(72, 36, 8), (4096, 1024, 8),
+                                    (4096, 1024, 3), (7, 129, 5),
+                                    (3, 5, 8)])
+def test_cuda_fec_recover_matches_plain(dev, R, P_, G):
+    mask, par = _fec_case(R, P_, G, R + P_ + G, dev)
+    before = t_fc.LAUNCHES
+    out = t_fc.fec_recover_call(mask, par, group=G)
+    torch.cuda.synchronize()
+    assert t_fc.LAUNCHES == before + 1
+    assert torch.equal(out, fec_recover_ref(mask, par, G))
+    assert bool((out >= mask).all())
+
+
+@pytest.mark.cuda
+def test_cuda_fec_vmap_fold_is_one_launch(dev):
+    S, C_, P_, G = 6, 12, 36, 8
+    mask, par = _fec_case(S * C_, P_, G, 11, dev)
+    mask, par = mask.reshape(S, C_, P_), par.reshape(S, C_, -1)
+    before = t_fc.LAUNCHES
+    out = torch.func.vmap(
+        lambda m, p: t_fec_ops.fec_recover(m, p, group=G))(mask, par)
+    torch.cuda.synchronize()
+    assert t_fc.LAUNCHES == before + 1
+    for i in range(S):
+        assert torch.equal(out[i], t_fc.fec_recover_call(mask[i], par[i],
+                                                         group=G))
+
+
+def _recovery_grid(n_rounds):
+    base = FLConfig(algo="fedavg", n_rounds=n_rounds, clients_per_round=8,
+                    local_steps=2, batch_size=8, eval_every=100, seed=1,
+                    tra=TRAConfig(enabled=True, loss_rate=0.3),
+                    netsim=NetSimConfig(channel="gilbert_elliott",
+                                        down_channel="gilbert_elliott",
+                                        down_loss=0.3))
+    return [dataclasses.replace(
+        base, tra=TRAConfig(enabled=True, loss_rate=r),
+        recovery=RecoveryConfig(policy=p, traced=True))
+        for p in ("one_shot", "fec", "arq") for r in (0.1, 0.3)]
+
+
+@pytest.mark.cuda
+def test_cuda_recovery_grid_rounds_match_cpu(dev):
+    """Two recovery grid rounds are two batched uplink launches, four
+    mask launches (uplink and downlink) and two FEC launches; they match
+    the CPU's."""
+    n = 20
+    data = generate_synthetic(np.random.default_rng(0), n_clients=n,
+                              alpha=0.5, beta=0.5)
+    nets = ClientNetworks(np.linspace(0.5, 20.0, n), np.full(n, 0.05))
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = (t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES, t_fc.LAUNCHES)
+        st, logs = SweepEngine.from_configs(_recovery_grid(2), data, nets,
+                                            device=d).run()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert (t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES,
+                    t_fc.LAUNCHES) == (before[0] + 2, before[1] + 4,
+                                       before[2] + 2)
+        out[d] = (logs["ids"], st.net.channel.cpu().numpy(),
+                  st.net.down.cpu().numpy(), np.concatenate(
+                      [st.params[k].cpu().numpy().reshape(6, -1)
+                       for k in sorted(st.params)], axis=1))
+    for a, b in zip(out["cuda"][:3], out["cpu"][:3]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-4,
+                               atol=1e-5)

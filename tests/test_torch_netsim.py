@@ -38,6 +38,7 @@ from repro.network import trace as j_trace
 from repro_torch import prng
 from repro_torch.convert import net_state_from_jax, params_from_jax
 from repro_torch.core.engine import RoundScanEngine
+from repro_torch.core.selection import SelectionConfig
 from repro_torch.core.server import FederatedServer as TServer
 from repro_torch.core.server import FLConfig as TConfig
 from repro_torch.core.tra import TRAConfig as TTRA
@@ -353,8 +354,10 @@ def test_ge_bw_deadline_rounds_match_reference(inputs, algo, channel):
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(netsim=TNetSim(down_channel="iid")), NotImplementedError),
-    (dict(netsim=TNetSim(down_channel="gilbert_elliott")),
+    (dict(netsim=TNetSim(channel="gilbert_elliott"),
+          sel=SelectionConfig(policy="netsim_state")), NotImplementedError),
+    (dict(netsim=TNetSim(deadline=True),
+          sel=SelectionConfig(policy="staleness_aware")),
      NotImplementedError),
     (dict(netsim=TNetSim(channel="gilbert_elliott"),
           tra=TTRA(enabled=False)), ValueError)])

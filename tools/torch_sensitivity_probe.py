@@ -18,7 +18,6 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.core.engine import EngineState
 from repro_torch.core.server import FederatedServer, FLConfig
 from repro_torch.core.tra import TRAConfig
 from repro_torch.data.synthetic import generate_synthetic
@@ -49,7 +48,8 @@ def main():
             noisy = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
                      for k, v in state.params.items()}
             outs.append(engine.run_single(
-                EngineState(noisy, state.ef_mem.clone(), state.lam), t)[0])
+                state._replace(params=noisy, ef_mem=state.ef_mem.clone()),
+                t)[0])
         state, _ = engine.run_single(state, t)
         gap = max(float((a.params[k] - state.params[k]).abs().max())
                   for a in outs for k in state.params)
