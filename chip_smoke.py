@@ -11,10 +11,10 @@ each against its plain PyTorch version on the card, drives the main
 paths (the quickstart's federated rounds, the paper's bursty-loss grid
 as one scenario-batched sweep, the corruption-tolerance grid of fault
 rate x defense, and the full-duplex recovery grid of recovery policy x
-loss rate) through the kernels, compares the card's runs
-with the CPU's, times the kernels, and ends with a one-line JSON
-verdict. Any failed check exits non-zero; with no card it exits
-non-zero at once and prints no result.
+loss rate, and the protocol layer's host-loop round) through the
+kernels, compares the card's runs with the CPU's, times the kernels,
+and ends with a one-line JSON verdict. Any failed check exits non-zero;
+with no card it exits non-zero at once and prints no result.
 
 Phases:
   1. setup      card name and power limit, TF32 off, kernel builds
@@ -72,10 +72,31 @@ Phases:
                 the CPU's state at the parity tolerances
   8. timings    each kernel, its plain version and the library call
                 (CUDA events, median of 100 after warm-up, 20 at the
-                tiling shapes of robust_agg and fec_recover), device
-                time from torch.profiler, the bound; and profiles of
-                quickstart rounds, of grid rounds, of defended grid
-                rounds and of recovery grid rounds
+                tiling shapes of robust_agg, fec_recover and the
+                protocol kernels), device time from torch.profiler, the
+                bound; and profiles of quickstart rounds, of grid
+                rounds, of defended grid rounds, of recovery grid rounds
+                and of host-loop rounds
+  9. protocol   (runs before 8) packet_mask bitwise vs packet_mask_ref
+                with NaN, +-Inf and -0.0 planted, f32 and bf16, at
+                (36, 256), (4096, 256) and (8, 128), its vmap fold one
+                launch; tra_agg vs tra_agg_ref for every debias mode at
+                (10, 36, 256), (16, 1024, 256) and (3, 8, 128), its
+                scenario axis one launch, bitwise S single launches;
+                qfed_reweight's delta bitwise, ssq and h close, its vmap
+                fold one launch. Then the reference's host-loop round
+                (benchmarks/engine_bench.py: Synthetic(1,1), N=100, C=10,
+                seed 7, FedAvg, TRA 10% group_rate through tra.aggregate)
+                for 50 rounds at 1x8 and 10x32, every client sufficient
+                and the sufficiency report, the counts set to 0 just
+                before and read just after (one tra_agg launch a round),
+                5 rounds of each on the card from the CPU's state (equal
+                cohorts and masks, params at the parity tolerances), the
+                port's FederatedServer on the same config beside it; the
+                q-FedAvg server step (10 rounds, one qfed_reweight launch
+                a round, 5 rounds against the CPU); lossy_upload of one
+                client and of the vmapped cohort (one packet_mask launch
+                each), bitwise the CPU's
 """
 from __future__ import annotations
 
@@ -96,12 +117,15 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import prng  # noqa: E402
+from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.lossbudget import LossBudgetConfig  # noqa: E402
-from repro_torch.core.mlp import mlp_weighted_loss  # noqa: E402
+from repro_torch.core.mlp import mlp_init, mlp_weighted_loss  # noqa: E402
 from repro_torch.core.server import (FederatedServer, FLConfig,  # noqa: E402
                                      run_grid)
 from repro_torch.core.sweep import SweepEngine  # noqa: E402
-from repro_torch.core.tra import DEBIAS_MODES, TRAConfig  # noqa: E402
+from repro_torch.core.tra import (DEBIAS_MODES, TRAConfig,  # noqa: E402
+                                  sufficiency_report)
 from repro_torch.data.synthetic import (generate_synthetic,  # noqa: E402
                                         padded_eval_set, stage_on_device)
 from repro_torch.kernels import _build  # noqa: E402
@@ -111,9 +135,20 @@ from repro_torch.kernels.fec_recover import ops as fec_ops  # noqa: E402
 from repro_torch.kernels.fec_recover.ref import fec_recover_ref  # noqa: E402
 from repro_torch.kernels.netsim_mask import netsim_mask as nm  # noqa: E402
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref  # noqa: E402
+from repro_torch.kernels.packet_mask import ops as pm_ops  # noqa: E402
+from repro_torch.kernels.packet_mask import packet_mask as pm  # noqa: E402
+from repro_torch.kernels.packet_mask.ref import packet_mask_ref  # noqa: E402
+from repro_torch.kernels.qfed_reweight import ops as qr_ops  # noqa: E402
+from repro_torch.kernels.qfed_reweight import (  # noqa: E402
+    qfed_reweight as qr)
+from repro_torch.kernels.qfed_reweight.ref import (  # noqa: E402
+    qfed_reweight_ref)
 from repro_torch.kernels.robust_agg import robust_agg as ra  # noqa: E402
 from repro_torch.kernels.robust_agg.ops import robust_prepass  # noqa: E402
 from repro_torch.kernels.robust_agg.ref import robust_ref  # noqa: E402
+from repro_torch.kernels.tra_agg import ops as ta_ops  # noqa: E402
+from repro_torch.kernels.tra_agg import tra_agg as ta  # noqa: E402
+from repro_torch.kernels.tra_agg.ref import tra_agg_ref  # noqa: E402
 from repro_torch.kernels.uplink_fused import uplink_fused as uf  # noqa: E402
 from repro_torch.kernels.uplink_fused import ops as uplink_ops  # noqa: E402
 from repro_torch.kernels.uplink_fused.ref import uplink_ref  # noqa: E402
@@ -122,6 +157,7 @@ from repro_torch.netsim.faults import (CLIP_OFF, DefenseConfig,  # noqa: E402
                                        FaultConfig)
 from repro_torch.netsim.recovery import (RECOVERY_POLICIES,  # noqa: E402
                                          RecoveryConfig)
+from repro_torch.network import packets  # noqa: E402
 from repro_torch.network.trace import (ClientNetworks,  # noqa: E402
                                        sample_networks)
 from repro_torch.utils.guards import assert_finite_tree  # noqa: E402
@@ -151,6 +187,15 @@ FEC_TILE_SHAPES = ((4096, 1024, 8), (4096, 1024, 3))
 REC_ROUNDS = 40
 HEADLINE_ROUNDS = 30
 CTRL_ROUNDS = 6
+PROTOCOL_SEED = 7
+PROTOCOL_SETTINGS = ((1, 8), (10, 32))   # (local steps, batch size)
+PROTOCOL_ROUNDS = 50
+PROTOCOL_D = 9098               # the MLP's width: P = 36 packets of 256
+QFED_ROUNDS = 10
+TRA_SHAPE = (10, 36, 256)       # C, P, F of the host loop's aggregate
+TRA_TILE_SHAPE = (16, 1024, 256)   # the reference's bench shape
+PM_SHAPE = (36, 256)            # P, F of one client's upload
+PM_TILE_SHAPE = (4096, 256)     # the reference's bench shape, D = 2**20
 
 
 def fail(msg: str) -> None:
@@ -161,6 +206,7 @@ def fail(msg: str) -> None:
 def zero_counts():
     uf.LAUNCHES = uf.BATCHED_LAUNCHES = nm.LAUNCHES = 0
     ra.LAUNCHES = ra.BATCHED_LAUNCHES = fc.LAUNCHES = 0
+    ta.LAUNCHES = qr.LAUNCHES = pm.LAUNCHES = 0
 
 
 def counts():
@@ -169,7 +215,10 @@ def counts():
             "netsim_mask": nm.LAUNCHES,
             "robust_agg": ra.LAUNCHES,
             "robust_agg_batched": ra.BATCHED_LAUNCHES,
-            "fec_recover": fc.LAUNCHES}
+            "fec_recover": fc.LAUNCHES,
+            "tra_agg": ta.LAUNCHES,
+            "qfed_reweight": qr.LAUNCHES,
+            "packet_mask": pm.LAUNCHES}
 
 
 def expect(**launches):
@@ -1221,6 +1270,338 @@ def run_recovery_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+def planted_rows(shape, seed, dev, dtype):
+    """Normal packet rows with NaN, +-Inf, -0.0 and a negative planted
+    in a lost row and a delivered row, and a 0/1 mask."""
+    R, F = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(R, F)).astype(np.float32)
+    x[0, :4] = [np.nan, np.inf, -np.inf, -0.0]
+    x[1, :4] = [np.nan, np.inf, -np.inf, -2.5]
+    m = (rng.random(R) > 0.3).astype(np.float32)
+    m[0], m[1] = 0.0, 1.0
+    return (torch.tensor(x, device=dev).to(dtype),
+            torch.tensor(m, device=dev))
+
+
+def bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def check_packet_mask_kernel(dev):
+    """packet_mask bitwise against its plain version on the card, NaN,
+    Inf and -0.0 included, and its vmap fold one launch, bitwise the
+    single launches. Returns 0.0, the largest difference."""
+    cases = [(PM_SHAPE, torch.float32), (PM_SHAPE, torch.bfloat16),
+             (PM_TILE_SHAPE, torch.float32), ((8, 128), torch.float32),
+             ((8, 128), torch.bfloat16)]
+    for n, (shape, dtype) in enumerate(cases):
+        x, m = planted_rows(shape, n, dev, dtype)
+        out = pm.packet_mask_call(x, m)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(out), bits(packet_mask_ref(x, m))):
+            fail(f"packet_mask differs from packet_mask_ref at {shape} "
+                 f"{dtype}")
+        if not (bool(torch.signbit(out[0, 3])) and float(out[0, 3]) == 0.0):
+            fail("packet_mask lost the sign of -0.0 * 0")
+    B, D = 10, PROTOCOL_D
+    rng = np.random.default_rng(21)
+    vec = torch.tensor(rng.normal(size=(B, D)).astype(np.float32), device=dev)
+    mask = torch.tensor((rng.random((B, -(-D // 256))) > 0.3).astype(
+        np.float32), device=dev)
+    before = pm.LAUNCHES
+    folded = torch.func.vmap(pm_ops.apply_packet_mask)(vec, mask)
+    torch.cuda.synchronize()
+    if pm.LAUNCHES - before != 1:
+        fail(f"the packet_mask vmap fold made {pm.LAUNCHES - before} "
+             f"launches, not 1")
+    for i in range(B):
+        if not torch.equal(folded[i], pm_ops.apply_packet_mask(vec[i],
+                                                               mask[i])):
+            fail(f"packet_mask vmap fold differs from single launch {i}")
+    print(f"[protocol] packet_mask: bitwise equal to packet_mask_ref at "
+          f"{[(s, str(d)[6:]) for s, d in cases]} with NaN, +-Inf and -0.0 "
+          f"planted; the vmap fold of B={B} uploads of D={D} is one "
+          f"launch, bitwise B single launches", flush=True)
+    return 0.0
+
+
+def tra_inputs(shape, seed, dev, lead=()):
+    C, P, F = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    m = rng.random(lead + (C, P)) > 0.4
+    return dict(x=t(rng.normal(size=lead + (C, P, F)) * m[..., None]),
+                m=t(m), w=t(rng.random(lead + (C,)) + 0.1),
+                kept=t(m.mean(-1)), rate=t(np.full(lead + (C,), 0.4)),
+                suff=t(rng.random(lead + (C,)) > 0.5))
+
+
+def check_tra_agg_kernel(dev):
+    """tra_agg against its plain version for every debias mode at the
+    host loop's, the bench's and a small shape (rtol 1e-6 / atol 1e-6),
+    and its scenario axis (the op under vmap) one launch, bitwise S
+    single launches. Returns the largest absolute difference."""
+    max_err = 0.0
+    for (n, shape), mode in itertools.product(
+            enumerate((TRA_SHAPE, TRA_TILE_SHAPE, (3, 8, 128))),
+            DEBIAS_MODES):
+        c = tra_inputs(shape, n, dev)
+        x, m = ta_ops.debias_inputs(c["x"], c["m"], mode=mode,
+                                    kept_frac=c["kept"],
+                                    nominal_rate=c["rate"],
+                                    sufficient=c["suff"])
+        x, m = x.contiguous(), m.contiguous()
+        out = ta.tra_agg_call(x, m, c["w"])
+        torch.cuda.synchronize()
+        ref = tra_agg_ref(x, m, c["w"])
+        torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+        max_err = max(max_err, float((out - ref).abs().max()))
+    S = 4
+    c = tra_inputs(TRA_SHAPE, 9, dev, lead=(S,))
+    args = [c[k] for k in ("x", "m", "w", "kept", "rate", "suff")]
+    for mode in DEBIAS_MODES:
+        def one(x, m, w, kept, rate, suff):
+            return ta_ops.tra_aggregate_packed(
+                x, m, w, mode=mode, kept_frac=kept, nominal_rate=rate,
+                sufficient=suff)
+
+        before = ta.LAUNCHES
+        out = torch.func.vmap(one)(*args)
+        torch.cuda.synchronize()
+        if ta.LAUNCHES - before != 1:
+            fail(f"tra_agg's scenario axis made {ta.LAUNCHES - before} "
+                 f"launches, not 1")
+        for s in range(S):
+            if not torch.equal(out[s], one(*(a[s] for a in args))):
+                fail(f"tra_agg scenario {s} ({mode}) differs from its "
+                     f"single launch")
+    print(f"[protocol] tra_agg: every debias mode within rtol 1e-6 / atol "
+          f"1e-6 of tra_agg_ref at (C, P, F) = {TRA_SHAPE}, "
+          f"{TRA_TILE_SHAPE} and (3, 8, 128), max |diff| {max_err:.3e}; "
+          f"the scenario axis (S={S}) is one launch, bitwise S single "
+          f"launches, every mode", flush=True)
+    return max_err
+
+
+def check_qfed_kernel(dev):
+    """qfed_reweight's delta bitwise against its plain version, ssq and h
+    at rtol 1e-5; its vmap fold one launch. Returns the largest absolute
+    difference over delta and ssq."""
+    max_err = 0.0
+    for n, shape in enumerate((TRA_SHAPE, TRA_TILE_SHAPE)):
+        rng = np.random.default_rng(40 + n)
+        dw = torch.tensor(rng.normal(size=shape).astype(np.float32),
+                          device=dev)
+        losses = torch.tensor(rng.random(shape[0]).astype(np.float32) + 0.5,
+                              device=dev)
+        fq = torch.pow(losses + qr_ops.LOSS_EPS, 2.0)
+        delta, partials = qr.qfed_reweight_call(dw, fq)
+        torch.cuda.synchronize()
+        d_ref, s_ref = qfed_reweight_ref(dw, fq)
+        if not torch.equal(delta, d_ref):
+            fail(f"qfed_reweight delta differs from the plain version at "
+                 f"{shape}")
+        ssq = partials.sum(1)
+        torch.testing.assert_close(ssq, s_ref, rtol=1e-5, atol=0)
+        _, h = qr_ops.qfed_reweight_packed(dw, losses, 2.0, 1.0)
+        _, h_cpu = qr_ops.qfed_reweight_packed(dw.cpu(), losses.cpu(), 2.0,
+                                               1.0)
+        torch.testing.assert_close(h.cpu(), h_cpu, rtol=1e-5, atol=0)
+        max_err = max(max_err, float((ssq - s_ref).abs().max()))
+    before = qr.LAUNCHES
+    dw = torch.randn((3,) + TRA_SHAPE, device=dev)
+    fq = torch.rand((3, TRA_SHAPE[0]), device=dev) + 0.1
+    delta, ssq = torch.func.vmap(qr_ops.qfed_reweight_op)(dw, fq)
+    torch.cuda.synchronize()
+    if qr.LAUNCHES - before != 1:
+        fail(f"the qfed_reweight vmap fold made {qr.LAUNCHES - before} "
+             f"launches, not 1")
+    for s in range(3):
+        d1, s1 = qr_ops.qfed_reweight_op(dw[s], fq[s])
+        if not (torch.equal(delta[s], d1) and torch.equal(ssq[s], s1)):
+            fail(f"qfed_reweight vmap fold differs from single launch {s}")
+    print(f"[protocol] qfed_reweight: delta bitwise, ssq and h within "
+          f"rtol 1e-5 of the plain version at {TRA_SHAPE} and "
+          f"{TRA_TILE_SHAPE} (max |ssq diff| {max_err:.3e} of ssq about "
+          f"P*F); the vmap fold of S=3 is one launch, bitwise", flush=True)
+    return max_err
+
+
+def protocol_inputs():
+    """The reference bench's dataset (Synthetic(1,1), N = 100, seed 7),
+    then the clients' networks from the same generator."""
+    rng = np.random.default_rng(PROTOCOL_SEED)
+    data = generate_synthetic(rng, n_clients=100, alpha=1.0, beta=1.0)
+    nets = sample_networks(rng, data.n_clients)
+    return data, nets, {"all": np.ones(data.n_clients, np.float32),
+                        "report": sufficiency_report(nets)}
+
+
+def protocol_cfg(algo, n_rounds, steps, bs):
+    return FLConfig(algo=algo, n_rounds=n_rounds, clients_per_round=10,
+                    local_steps=steps, batch_size=bs, eval_every=10 ** 6,
+                    seed=PROTOCOL_SEED,
+                    tra=TRAConfig(enabled=True, loss_rate=0.1))
+
+
+def params_close(a, b):
+    for k in b:
+        torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-4, atol=1e-5)
+    return max(float((a[k].cpu() - b[k]).abs().max()) for k in b)
+
+
+def check_rounds_vs_cpu(cfg, data, suff, dev):
+    """``cfg.n_rounds`` rounds on the CPU; each also on the card from the
+    CPU's state: cohorts, masks and kept fractions equal, params at
+    rtol 1e-4 / atol 1e-5. Returns the largest param difference."""
+    p_cpu = mlp_init(prng.PRNGKey(cfg.seed))
+    worst = 0.0
+    for inp in protocol.round_inputs(cfg, data, suff):
+        p_card, rec_card = protocol.step(
+            {k: v.to(dev) for k, v in p_cpu.items()}, inp, cfg, dev)
+        p_cpu, rec_cpu = protocol.step(p_cpu, inp, cfg, "cpu")
+        if not np.array_equal(rec_card.ids, rec_cpu.ids):
+            fail(f"host loop round {inp.t}: cohorts differ")
+        if rec_cpu.pkt_mask is not None and not (
+                torch.equal(rec_card.pkt_mask.cpu(), rec_cpu.pkt_mask)
+                and torch.equal(rec_card.kept.cpu(), rec_cpu.kept)):
+            fail(f"host loop round {inp.t}: packet masks differ")
+        worst = max(worst, params_close(p_card, p_cpu))
+    return worst
+
+
+def server_rounds_per_s(cfg, data, nets, dev):
+    """The port's FederatedServer (the device-resident engine) on the
+    host loop's config: a warm-up run, then one timed run."""
+    FederatedServer(cfg, data, nets, device=dev).run()
+    server = FederatedServer(cfg, data, nets, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.run()
+    torch.cuda.synchronize()
+    return cfg.n_rounds / (time.perf_counter() - t0)
+
+
+def run_protocol_phase(card, dev="cuda"):
+    """The host-loop protocol round (FedAvg, TRA group_rate through
+    tra.aggregate) at both of the reference's settings and both
+    sufficiency settings, the q-FedAvg server step and lossy_upload on
+    the card, each with its counts set to 0 just before and read just
+    after. Returns the launches of tra_agg, qfed_reweight and
+    packet_mask on those runs."""
+    t_phase = time.perf_counter()
+    data, nets, suffs = protocol_inputs()
+    # warm-up of both settings (first vmap of the local step); not counted
+    for steps, bs in PROTOCOL_SETTINGS:
+        protocol.run_host_loop(protocol_cfg("fedavg", 2, steps, bs), data,
+                               suffs["report"], device=dev)
+    torch.cuda.synchronize()
+    tra_launches = 0
+    for (steps, bs), name in itertools.product(PROTOCOL_SETTINGS,
+                                               ("all", "report")):
+        cfg = protocol_cfg("fedavg", PROTOCOL_ROUNDS, steps, bs)
+        zero_counts()
+        t0 = time.perf_counter()
+        params, recs = protocol.run_host_loop(cfg, data, suffs[name],
+                                              device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        if got != expect(tra_agg=PROTOCOL_ROUNDS):
+            fail(f"host loop {steps}x{bs} {name}: launches {got}, expected "
+                 f"{PROTOCOL_ROUNDS} tra_agg launches and no other")
+        tra_launches += got["tra_agg"]
+        losses = [r.loss for r in recs]
+        if not all(map(math.isfinite, losses)):
+            fail(f"host loop {steps}x{bs} {name}: bad losses {losses}")
+        assert_finite_tree(params, f"host loop {steps}x{bs} {name}")
+        lost = float(np.mean([float(1 - r.pkt_mask.mean()) for r in recs]))
+        if (lost == 0.0) != (name == "all"):
+            fail(f"host loop {name}: lost packet share {lost}")
+        worst = check_rounds_vs_cpu(
+            protocol_cfg("fedavg", PARITY_ROUNDS, steps, bs), data,
+            suffs[name], dev)
+        print(f"[protocol] host loop FedAvg {steps:2d}x{bs:2d} sufficiency "
+              f"{name:6s}: {PROTOCOL_ROUNDS} rounds in {secs:.3f} s, "
+              f"{PROTOCOL_ROUNDS / secs:.1f} rounds/s, loss {losses[0]:.4f}"
+              f"->{losses[-1]:.4f}, packets lost {lost:.4f}, launches "
+              f"{got['tra_agg']} tra_agg; vs cpu {PARITY_ROUNDS} rounds "
+              f"from the cpu's state: cohorts and masks equal, max |param "
+              f"diff| {worst:.3e} | {card}", flush=True)
+    for steps, bs in PROTOCOL_SETTINGS:
+        rps = server_rounds_per_s(
+            protocol_cfg("fedavg", PROTOCOL_ROUNDS, steps, bs), data, nets,
+            dev)
+        print(f"[protocol] FederatedServer FedAvg {steps:2d}x{bs:2d} on the "
+              f"same config (sufficiency report): {rps:.1f} rounds/s "
+              f"(device-resident engine; a measurement, not a claim) "
+              f"| {card}", flush=True)
+
+    cfg = protocol_cfg("qfedavg", QFED_ROUNDS, *PROTOCOL_SETTINGS[1])
+    protocol.run_host_loop(dataclasses.replace(cfg, n_rounds=2), data,
+                           suffs["all"], device=dev)    # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    params, recs = protocol.run_host_loop(cfg, data, suffs["all"],
+                                          device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    if got != expect(qfed_reweight=QFED_ROUNDS):
+        fail(f"q-FedAvg step launches {got}, expected {QFED_ROUNDS} "
+             f"qfed_reweight launches and no other")
+    qfed_launches = got["qfed_reweight"]
+    assert_finite_tree(params, "q-FedAvg host loop")
+    worst = check_rounds_vs_cpu(dataclasses.replace(cfg,
+                                                    n_rounds=PARITY_ROUNDS),
+                                data, suffs["all"], dev)
+    print(f"[protocol] q-FedAvg server step 10x32: {QFED_ROUNDS} rounds in "
+          f"{secs:.3f} s, loss {recs[0].loss:.4f}->{recs[-1].loss:.4f}, "
+          f"launches {qfed_launches} qfed_reweight; vs cpu {PARITY_ROUNDS} "
+          f"rounds from the cpu's state: cohorts equal, max |param diff| "
+          f"{worst:.3e} | {card}", flush=True)
+
+    C, D = 10, PROTOCOL_D
+    keys = prng.split(prng.PRNGKey(PROTOCOL_SEED, device=dev), C)
+    vec = torch.tensor(np.random.default_rng(5).normal(size=(C, D)).astype(
+        np.float32), device=dev)
+    zero_counts()
+    one = packets.lossy_upload(keys[0], vec[0], 0.1)
+    cohort = torch.func.vmap(lambda k, v: packets.lossy_upload(k, v, 0.1))(
+        keys, vec)
+    torch.cuda.synchronize()
+    got = counts()
+    if got != expect(packet_mask=2):
+        fail(f"lossy_upload launches {got}, expected one packet_mask launch "
+             f"for one client and one for the vmapped cohort")
+    pm_launches = got["packet_mask"]
+    one_cpu = packets.lossy_upload(keys[0].cpu(), vec[0].cpu(), 0.1)
+    cohort_cpu = torch.func.vmap(
+        lambda k, v: packets.lossy_upload(k, v, 0.1))(keys.cpu(), vec.cpu())
+    for label, a, b in (("one client", one, one_cpu),
+                        ("the cohort", cohort, cohort_cpu)):
+        for got_t, want in zip(a, b):
+            if not torch.equal(got_t.cpu(), want):
+                fail(f"lossy_upload of {label} differs from the cpu's")
+    print(f"[protocol] lossy_upload at D={D}: one client and the vmapped "
+          f"cohort of {C}, one packet_mask launch each; masked uploads, "
+          f"masks and kept fractions bitwise the cpu's (kept "
+          f"{float(one[2]):.6f}; cohort lost "
+          f"{float(1 - cohort[1].mean()):.4f} of its packets)", flush=True)
+    print(f"[protocol] the host-loop phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"tra_agg": tra_launches, "qfed_reweight": qfed_launches,
+            "packet_mask": pm_launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
 def median_ms(fn, reps=100, warmup=10):
@@ -1405,6 +1786,115 @@ def time_fec(shape, card):
             "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def time_tra_agg(shape, card):
+    """tra_agg at ``shape`` with the host loop's call: group_rate, the
+    clients pre-scaled and the mask ones."""
+    c = tra_inputs(shape, 66, "cuda")
+    x, m = ta_ops.debias_inputs(c["x"], c["m"], mode="group_rate",
+                                nominal_rate=c["rate"], sufficient=c["suff"])
+    x, m, w = x.contiguous(), m.contiguous(), c["w"]
+    wm = m * w[:, None]
+
+    def kernel():
+        return ta.tra_agg_call(x, m, w)
+
+    def plain():
+        return tra_agg_ref(x, m, w)
+
+    def library():
+        return torch.einsum("cpf,cp->pf", x, wm)
+
+    reps = 20 if shape[1] > 100 else 100
+    p1, k1, k2, p2 = (median_ms(f, reps=reps)
+                      for f in (plain, kernel, kernel, plain))
+    lib_ms = median_ms(library, reps=reps)
+    dev_ms = device_ms(kernel, "tra_agg_kernel")
+    C, P, F = shape
+    out = kernel()
+    n_bytes = sum(t.nbytes for t in (x, m, w, out))
+    # per element the multiply-add of the numerator; per (c, p) the
+    # mask-weight product and the denominator's add; one division per
+    # output
+    bound_ms, bound_by = bound(n_bytes, 2 * C * P * F + 2 * C * P + P * F)
+    print(f"[time] tra_agg C={C} P={P} F={F} f32: kernel {k1:.4f}/{k2:.4f} "
+          f"ms, plain {p1:.4f}/{p2:.4f} ms, einsum of the numerator "
+          f"{lib_ms:.4f} ms (per call, CUDA events, median of {reps}); "
+          f"kernel device time "
+          + (f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured")
+          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
+    return {"ms": statistics.median([k1, k2]),
+            "plain_ms": statistics.median([p1, p2]), "library_ms": lib_ms,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_packet_mask(shape, card):
+    """packet_mask at ``shape`` (R, F), f32."""
+    x, m = planted_rows(shape, 67, "cuda", torch.float32)
+    m2 = m[:, None]
+
+    def kernel():
+        return pm.packet_mask_call(x, m)
+
+    def plain():
+        return packet_mask_ref(x, m)
+
+    def library():
+        return torch.mul(x, m2)
+
+    reps = 20 if shape[0] > 100 else 100
+    p1, k1, k2, p2 = (median_ms(f, reps=reps)
+                      for f in (plain, kernel, kernel, plain))
+    lib_ms = median_ms(library, reps=reps)
+    dev_ms = device_ms(kernel, "packet_mask_f32")
+    R, F = shape
+    out = kernel()
+    n_bytes = sum(t.nbytes for t in (x, m, out))
+    bound_ms, bound_by = bound(n_bytes, R * F)     # one multiply each
+    print(f"[time] packet_mask R={R} F={F} f32: kernel {k1:.4f}/{k2:.4f} "
+          f"ms, plain {p1:.4f}/{p2:.4f} ms, torch.mul {lib_ms:.4f} ms (per "
+          f"call, CUDA events, median of {reps}); kernel device time "
+          + (f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured")
+          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
+    return {"ms": statistics.median([k1, k2]),
+            "plain_ms": statistics.median([p1, p2]), "library_ms": lib_ms,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_qfed(shape, card):
+    """qfed_reweight at ``shape`` (C, P, F)."""
+    g = torch.Generator(device="cuda").manual_seed(68)
+    dw = torch.randn(shape, device="cuda", generator=g)
+    fq = torch.rand(shape[0], device="cuda", generator=g) + 0.5
+
+    def kernel():
+        return qr.qfed_reweight_call(dw, fq)
+
+    def plain():
+        return qfed_reweight_ref(dw, fq)
+
+    reps = 20 if shape[1] > 100 else 100
+    p1, k1, k2, p2 = (median_ms(f, reps=reps)
+                      for f in (plain, kernel, kernel, plain))
+    dev_ms = device_ms(kernel, "qfed_reweight_kernel")
+    C, P, F = shape
+    delta, partials = kernel()
+    n_bytes = sum(t.nbytes for t in (dw, fq, delta, partials))
+    # per element the scale's multiply and the square's multiply-add
+    bound_ms, bound_by = bound(n_bytes, 3 * C * P * F)
+    print(f"[time] qfed_reweight C={C} P={P} F={F} f32: kernel "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (per call, "
+          f"CUDA events, median of {reps}); no single PyTorch call "
+          f"computes it; kernel device time "
+          + (f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured")
+          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
+    return {"ms": statistics.median([k1, k2]),
+            "plain_ms": statistics.median([p1, p2]), "library_ms": None,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def robust_ops(C, P, F, trim_k):
     """Operations of one robust aggregation, counted per element of
     (C, P, F): the finite test, the sanitising select and the
@@ -1556,6 +2046,27 @@ def profile_rounds(card, n=5):
     print_profile(f"{n} quickstart TRA rounds | {card}", prof, wall_ms, n)
 
 
+def profile_host_loop(card, n=5):
+    """Device busy share and top kernels over ``n`` host-loop rounds
+    (FedAvg, 10 local steps of 32, the sufficiency report)."""
+    data, _, suffs = protocol_inputs()
+    cfg = protocol_cfg("fedavg", n + 2, *PROTOCOL_SETTINGS[1])
+    rounds = protocol.round_inputs(cfg, data, suffs["report"])
+    params = mlp_init(prng.PRNGKey(cfg.seed, device="cuda"))
+    for inp in itertools.islice(rounds, 2):           # warm-up
+        params, _ = protocol.step(params, inp, cfg, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for inp in rounds:           # the host's draws inside the window
+            params, _ = protocol.step(params, inp, cfg, "cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} host-loop FedAvg rounds (10x32, sufficiency report) "
+                  f"| {card}", prof, wall_ms, n)
+
+
 # ---------------------------------------------------------------------------
 def entry(name, source, replaces, launches, max_err, t):
     return {"name": name, "route": "cuda", "source": source,
@@ -1582,6 +2093,10 @@ def main() -> int:
     fault_counts, single_fault_counts, _ = run_fault_phase(card)
     fec_err = check_fec_kernel(dev)
     rec_counts, _ = run_recovery_phase(card)
+    pm_err = check_packet_mask_kernel(dev)
+    tra_err = check_tra_agg_kernel(dev)
+    qfed_err = check_qfed_kernel(dev)
+    proto_counts = run_protocol_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
     batched_t = time_batched_uplink(GRID_SHAPE, card)
@@ -1595,10 +2110,17 @@ def main() -> int:
     fec_t = time_fec(FEC_SHAPE, card)
     for shape in FEC_TILE_SHAPES:
         time_fec(shape, card)
+    tra_t = time_tra_agg(TRA_SHAPE, card)
+    time_tra_agg(TRA_TILE_SHAPE, card)
+    pm_t = time_packet_mask(PM_SHAPE, card)
+    time_packet_mask(PM_TILE_SHAPE, card)
+    qfed_t = time_qfed(TRA_SHAPE, card)
+    time_qfed(TRA_TILE_SHAPE, card)
     profile_rounds(card)
     profile_grid(card)
     profile_fault_grid(card)
     profile_recovery_grid(card)
+    profile_host_loop(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [
@@ -1622,6 +2144,15 @@ def main() -> int:
         entry("fec_recover", "src/repro_torch/csrc/fec_recover.cu",
               "src/repro/kernels/fec_recover/fec_recover.py:53",
               rec_counts["fec_recover"], fec_err, fec_t),
+        entry("tra_agg", "src/repro_torch/csrc/tra_agg.cu",
+              "src/repro/kernels/tra_agg/tra_agg.py:41",
+              proto_counts["tra_agg"], tra_err, tra_t),
+        entry("qfed_reweight", "src/repro_torch/csrc/qfed_reweight.cu",
+              "src/repro/kernels/qfed_reweight/qfed_reweight.py:33",
+              proto_counts["qfed_reweight"], qfed_err, qfed_t),
+        entry("packet_mask", "src/repro_torch/csrc/packet_mask.cu",
+              "src/repro/kernels/packet_mask/packet_mask.py:26",
+              proto_counts["packet_mask"], pm_err, pm_t),
     ]}
     print(card)
     print(json.dumps(summary))

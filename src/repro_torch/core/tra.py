@@ -7,8 +7,10 @@ Server side:
      clients' lost packets are thrown away and their coordinates zeroed,
   4. aggregation debiases the zero-filled updates (Eq. 1 and variants).
 
-This module is protocol plus the flat <-> parameter-dict helpers; the
-debiased aggregate runs in the uplink megakernel
+This module is protocol plus the flat <-> parameter-dict helpers over
+flat (C, D) client uploads; ``aggregate`` runs the debiased aggregate in
+the ``tra_agg`` kernel (``kernels/tra_agg``). The engine's round step
+folds the same estimators into the uplink megakernel
 (``kernels/uplink_fused``).
 """
 from __future__ import annotations
@@ -20,15 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.network.packets import PACKET_FLOATS, n_packets
+from repro_torch.kernels.tra_agg.ops import DEBIAS_MODES, tra_aggregate
+from repro_torch.network.packets import (PACKET_FLOATS, kept_fraction,
+                                        n_packets)
 from repro_torch.network.trace import ClientNetworks, DEFAULT_THRESHOLD_MBPS
-
-# How the server debiases zero-filled uploads:
-#   per_coord_count  sum_c w_c m_c x_c / sum_c w_c m_c   (per coordinate)
-#   per_client_rate  each client rescaled by 1 / its kept fraction
-#   group_rate       insufficient clients rescaled by 1 / (1 - r) (Eq. 1)
-#   none             zero-filled mean, biased toward zero
-DEBIAS_MODES = ("per_coord_count", "per_client_rate", "group_rate", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +66,21 @@ def simulate_uploads(key: torch.Tensor, updates: torch.Tensor,
     lost = (u < loss_rate) & ~sufficient.bool()[:, None]
     pkt_mask = 1.0 - lost.float()
     coord = torch.repeat_interleave(pkt_mask, packet_floats, dim=1)[:, :D]
-    return updates * coord, pkt_mask, coord.mean(dim=1)
+    return updates * coord, pkt_mask, kept_fraction(coord)
+
+
+def aggregate(updates: torch.Tensor, pkt_mask: torch.Tensor,
+              weights: torch.Tensor, sufficient: torch.Tensor,
+              kept_frac: torch.Tensor, cfg: TRAConfig) -> torch.Tensor:
+    """Debiased weighted mean of (C, D) client uploads, the FedAvg-style
+    combine: one ``tra_agg`` launch on the card. For sum semantics
+    (q-FedAvg's sum of deltas) multiply by ``weights.sum()``."""
+    rate = torch.full(updates.shape[:1], cfg.loss_rate,
+                      dtype=torch.float32, device=updates.device)
+    return tra_aggregate(
+        updates, pkt_mask, weights, mode=cfg.debias, kept_frac=kept_frac,
+        nominal_rate=rate, sufficient=sufficient,
+        packet_floats=cfg.packet_floats)
 
 
 def flatten_clients(tree: Dict[str, torch.Tensor], n_clients: int

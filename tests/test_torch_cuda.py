@@ -20,7 +20,14 @@ bitwise, params rtol 1e-4 / atol 1e-5. The FEC repair kernel against its
 plain version bitwise (0/1 masks, exact sums), its vmap fold one launch
 and bitwise S single launches; recovery grid rounds on the card against
 the CPU: cohorts and both channel chains bitwise, params rtol 1e-4 /
-atol 1e-5.
+atol 1e-5. The protocol layer's kernels against their plain versions on
+the card: packet_mask bitwise in f32 and bf16 with NaN, Inf and -0.0
+planted, its vmap fold one launch and bitwise; tra_agg rtol 1e-6 / atol
+1e-6 for every debias mode (the plain einsum sums in another order),
+its scenario axis one launch, bitwise S single launches; qfed_reweight's
+delta bitwise (one multiply), ssq and h rtol 1e-5, its vmap fold one
+launch; two host-loop rounds on the card against the CPU: cohorts and
+packet masks bitwise, params rtol 1e-4 / atol 1e-5.
 """
 import dataclasses
 
@@ -28,9 +35,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
+from repro_torch.core import protocol
 from repro_torch.core.server import FLConfig, run_grid
 from repro_torch.core.sweep import SweepEngine
-from repro_torch.core.tra import DEBIAS_MODES, TRAConfig
+from repro_torch.core.tra import DEBIAS_MODES, TRAConfig, sufficiency_report
 from repro_torch.data.synthetic import generate_synthetic
 from repro_torch.kernels.common import DENOM_EPS
 from repro_torch.kernels.fec_recover import fec_recover as t_fc
@@ -38,8 +47,16 @@ from repro_torch.kernels.fec_recover import ops as t_fec_ops
 from repro_torch.kernels.fec_recover.ref import fec_recover_ref
 from repro_torch.kernels.netsim_mask import netsim_mask as t_nm
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref
+from repro_torch.kernels.packet_mask import packet_mask as t_pm
+from repro_torch.kernels.packet_mask.ref import packet_mask_ref
+from repro_torch.kernels.qfed_reweight import ops as t_qr_ops
+from repro_torch.kernels.qfed_reweight import qfed_reweight as t_qr
+from repro_torch.kernels.qfed_reweight.ref import qfed_reweight_ref
 from repro_torch.kernels.robust_agg import robust_agg as t_ra
 from repro_torch.kernels.robust_agg.ref import robust_ref
+from repro_torch.kernels.tra_agg import ops as t_ta_ops
+from repro_torch.kernels.tra_agg import tra_agg as t_ta
+from repro_torch.kernels.tra_agg.ref import tra_agg_ref
 from repro_torch.kernels.uplink_fused import ops as t_ops
 from repro_torch.kernels.uplink_fused import uplink_fused as t_uf
 from repro_torch.kernels.uplink_fused.ref import uplink_ref
@@ -47,7 +64,8 @@ from repro_torch.netsim.channel import ge_transition_probs
 from repro_torch.netsim.config import NetSimConfig
 from repro_torch.netsim.faults import DefenseConfig, FaultConfig, flip_bit_op
 from repro_torch.netsim.recovery import RecoveryConfig
-from repro_torch.network.trace import ClientNetworks
+from repro_torch.network import packets as t_pk
+from repro_torch.network.trace import ClientNetworks, sample_networks
 
 S, C, P, F = 3, 6, 16, 32
 D_UP = P * F - 11                       # partial last packet
@@ -434,3 +452,167 @@ def test_cuda_recovery_grid_rounds_match_cpu(dev):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_allclose(out["cuda"][3], out["cpu"][3], rtol=1e-4,
                                atol=1e-5)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,F_", [(36, 256), (4096, 256), (8, 128),
+                                  (7, 129)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_packet_mask_matches_plain(dev, R, F_, dtype):
+    rng = np.random.default_rng(R + F_)
+    x = rng.normal(size=(R, F_)).astype(np.float32)
+    x[0, :4] = [np.nan, np.inf, -np.inf, -0.0]
+    x[1, :4] = [np.nan, np.inf, -np.inf, -2.5]
+    m = (rng.random(R) > 0.3).astype(np.float32)
+    m[0], m[1] = 0.0, 1.0
+    x = torch.tensor(x, device=dev).to(dtype)
+    m = torch.tensor(m, device=dev)
+    before = t_pm.LAUNCHES
+    out = t_pm.packet_mask_call(x, m)
+    torch.cuda.synchronize()
+    assert t_pm.LAUNCHES == before + 1 and out.dtype == dtype
+    assert torch.equal(_bits(out), _bits(packet_mask_ref(x, m)))
+    assert bool(torch.signbit(out[0, 3])) and float(out[0, 3]) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_packet_mask_vmap_fold_is_one_launch(dev):
+    """lossy_upload vmapped over the cohort: one launch, bitwise the
+    single uploads and the CPU's masks."""
+    keys = prng.split(prng.PRNGKey(3, device=dev), 10)
+    vec = torch.tensor(np.random.default_rng(3).normal(
+        size=(10, 9098)).astype(np.float32), device=dev)
+    before = t_pm.LAUNCHES
+    masked, pm, kept = torch.func.vmap(
+        lambda k, v: t_pk.lossy_upload(k, v, 0.3))(keys, vec)
+    torch.cuda.synchronize()
+    assert t_pm.LAUNCHES == before + 1
+    for i in range(10):
+        m1, p1, k1 = t_pk.lossy_upload(keys[i], vec[i], 0.3)
+        assert torch.equal(masked[i], m1) and torch.equal(pm[i], p1)
+        assert torch.equal(kept[i], k1)
+    _, pm_cpu, kept_cpu = torch.func.vmap(
+        lambda k, v: t_pk.lossy_upload(k, v, 0.3))(keys.cpu(), vec.cpu())
+    assert torch.equal(pm.cpu(), pm_cpu)
+    assert torch.equal(kept.cpu(), kept_cpu)
+
+
+def _tra_case(C_, P_, F_, seed, dev, lead=()):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    m = rng.random(lead + (C_, P_)) > 0.4
+    return dict(x=t(rng.normal(size=lead + (C_, P_, F_)) * m[..., None]),
+                m=t(m), w=t(rng.random(lead + (C_,)) + 0.1),
+                kept=t(m.mean(-1)), rate=t(np.full(lead + (C_,), 0.4)),
+                suff=t(rng.random(lead + (C_,)) > 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 36, 256), (3, 8, 128),
+                                   (16, 64, 256), (5, 7, 33)])
+@pytest.mark.parametrize("mode", DEBIAS_MODES)
+def test_cuda_tra_agg_matches_plain(dev, shape, mode):
+    c = _tra_case(*shape, sum(shape), dev)
+    x, m = t_ta_ops.debias_inputs(c["x"], c["m"], mode=mode,
+                                  kept_frac=c["kept"],
+                                  nominal_rate=c["rate"],
+                                  sufficient=c["suff"])
+    x, m = x.contiguous(), m.contiguous()
+    before = t_ta.LAUNCHES
+    out = t_ta.tra_agg_call(x, m, c["w"])
+    torch.cuda.synchronize()
+    assert t_ta.LAUNCHES == before + 1
+    torch.testing.assert_close(out, tra_agg_ref(x, m, c["w"]), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", DEBIAS_MODES)
+def test_cuda_tra_agg_scenario_axis_equals_single_launches(dev, mode):
+    S = 4
+    c = _tra_case(10, 36, 256, 17, dev, lead=(S,))
+
+    def one(x, m, w, kept, rate, suff):
+        return t_ta_ops.tra_aggregate_packed(
+            x, m, w, mode=mode, kept_frac=kept, nominal_rate=rate,
+            sufficient=suff)
+
+    args = [c[k] for k in ("x", "m", "w", "kept", "rate", "suff")]
+    before = t_ta.LAUNCHES
+    out = torch.func.vmap(one)(*args)
+    torch.cuda.synchronize()
+    assert t_ta.LAUNCHES == before + 1
+    for s in range(S):
+        assert torch.equal(out[s], one(*(a[s] for a in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 36, 256), (16, 1024, 256),
+                                   (3, 5, 33)])
+def test_cuda_qfed_reweight_matches_plain(dev, shape):
+    rng = np.random.default_rng(sum(shape))
+    dw = torch.tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+    losses = torch.tensor(rng.random(shape[0]).astype(np.float32) + 0.5,
+                          device=dev)
+    fq = torch.pow(losses + t_qr_ops.LOSS_EPS, 2.0)
+    before = t_qr.LAUNCHES
+    delta, partials = t_qr.qfed_reweight_call(dw, fq)
+    torch.cuda.synchronize()
+    assert t_qr.LAUNCHES == before + 1
+    d_ref, s_ref = qfed_reweight_ref(dw, fq)
+    assert torch.equal(delta, d_ref)
+    torch.testing.assert_close(partials.sum(1), s_ref, rtol=1e-5, atol=0)
+    _, h = t_qr_ops.qfed_reweight_packed(dw, losses, 2.0, 1.0)
+    _, h_cpu = t_qr_ops.qfed_reweight_packed(dw.cpu(), losses.cpu(), 2.0,
+                                             1.0)
+    torch.testing.assert_close(h.cpu(), h_cpu, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_qfed_reweight_vmap_fold_is_one_launch(dev):
+    rng = np.random.default_rng(8)
+    dw = torch.tensor(rng.normal(size=(3, 10, 36, 256)).astype(np.float32),
+                      device=dev)
+    fq = torch.tensor(rng.random((3, 10)).astype(np.float32) + 0.1,
+                      device=dev)
+    before = t_qr.LAUNCHES
+    delta, ssq = torch.func.vmap(t_qr_ops.qfed_reweight_op)(dw, fq)
+    torch.cuda.synchronize()
+    assert t_qr.LAUNCHES == before + 1
+    for s in range(3):
+        d1, s1 = t_qr_ops.qfed_reweight_op(dw[s], fq[s])
+        assert torch.equal(delta[s], d1) and torch.equal(ssq[s], s1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["fedavg", "qfedavg"])
+def test_cuda_host_loop_rounds_match_cpu(dev, algo):
+    """Two host-loop rounds: one tra_agg (FedAvg) or qfed_reweight
+    (q-FedAvg) launch a round, cohorts and masks the CPU's."""
+    rng = np.random.default_rng(7)
+    data = generate_synthetic(rng, n_clients=100, alpha=1.0, beta=1.0)
+    suff = sufficiency_report(sample_networks(rng, 100))
+    cfg = FLConfig(algo=algo, n_rounds=2, clients_per_round=10,
+                   local_steps=1, batch_size=8, seed=7,
+                   tra=TRAConfig(enabled=True, loss_rate=0.1))
+    counter = t_ta if algo == "fedavg" else t_qr
+    before = counter.LAUNCHES
+    params, recs = protocol.run_host_loop(cfg, data, suff, device=dev)
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == before + 2
+    params_cpu, recs_cpu = protocol.run_host_loop(cfg, data, suff,
+                                                  device="cpu")
+    for a, b in zip(recs, recs_cpu):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        if algo == "fedavg":
+            assert torch.equal(a.pkt_mask.cpu(), b.pkt_mask)
+    for k in params:
+        torch.testing.assert_close(params[k].cpu(), params_cpu[k],
+                                   rtol=1e-4, atol=1e-5)
