@@ -10,11 +10,12 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the main
 paths (the quickstart's federated rounds, the paper's bursty-loss grid
 as one scenario-batched sweep, the corruption-tolerance grid of fault
-rate x defense, and the full-duplex recovery grid of recovery policy x
-loss rate, and the protocol layer's host-loop round) through the
-kernels, compares the card's runs with the CPU's, times the kernels,
-and ends with a one-line JSON verdict. Any failed check exits non-zero;
-with no card it exits non-zero at once and prints no result.
+rate x defense, the full-duplex recovery grid of recovery policy x
+loss rate, the protocol layer's host-loop round, and greedy serving of
+qwen1.5-4b at full width) through the kernels, compares the card's runs
+with the CPU's, times the kernels, and ends with a one-line JSON
+verdict. Any failed check exits non-zero; with no card it exits
+non-zero at once and prints no result.
 
 Phases:
   1. setup      card name and power limit, TF32 off, kernel builds
@@ -97,6 +98,23 @@ Phases:
                 a round, 5 rounds against the CPU); lossy_upload of one
                 client and of the vmapped cohort (one packet_mask launch
                 each), bitwise the CPU's
+ 10. serve      (runs before 8) flash_decode vs flash_decode_ref, f32
+                rtol/atol 2e-5 and bf16 K/V 2e-2, over FD_CASES: the
+                reference's sweep, the serve's (2, 20, 1, 128, T=25),
+                starcoder2's GQA, a gemma3 local and global layer, ragged
+                T, whole T splits masked first and last. Then
+                repro_torch.launch.serve at its defaults (qwen1.5-4b at
+                full width, f32 params and cache, batch 2, prompt 8, 16
+                new tokens) with the counts set to 0 just before and
+                read just after (40 layers x 24 steps = 960 flash_decode
+                launches): tokens in range, logits finite, prefill s,
+                tok/s, peak memory; the kernel on layers 0 and 39's
+                caches; a profile of one decode step; the model at full
+                width cut to 2 layers on the card and the CPU from the
+                same params (greedy tokens equal, logits rtol/atol 1e-4);
+                timings at the serve's shape and two long bf16 caches
+                (T = 32,768) beside the plain version and
+                scaled_dot_product_attention
 """
 from __future__ import annotations
 
@@ -124,6 +142,7 @@ from repro_torch.core.mlp import mlp_init, mlp_weighted_loss  # noqa: E402
 from repro_torch.core.server import (FederatedServer, FLConfig,  # noqa: E402
                                      run_grid)
 from repro_torch.core.sweep import SweepEngine  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.tra import (DEBIAS_MODES, TRAConfig,  # noqa: E402
                                   sufficiency_report)
 from repro_torch.data.synthetic import (generate_synthetic,  # noqa: E402
@@ -133,6 +152,10 @@ from repro_torch.kernels.common import DENOM_EPS  # noqa: E402
 from repro_torch.kernels.fec_recover import fec_recover as fc  # noqa: E402
 from repro_torch.kernels.fec_recover import ops as fec_ops  # noqa: E402
 from repro_torch.kernels.fec_recover.ref import fec_recover_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import flash_decode as fd  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
+    flash_decode_ref)
 from repro_torch.kernels.netsim_mask import netsim_mask as nm  # noqa: E402
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref  # noqa: E402
 from repro_torch.kernels.packet_mask import ops as pm_ops  # noqa: E402
@@ -152,6 +175,9 @@ from repro_torch.kernels.tra_agg.ref import tra_agg_ref  # noqa: E402
 from repro_torch.kernels.uplink_fused import uplink_fused as uf  # noqa: E402
 from repro_torch.kernels.uplink_fused import ops as uplink_ops  # noqa: E402
 from repro_torch.kernels.uplink_fused.ref import uplink_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import decode as decode_mod  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.netsim.config import NetSimConfig  # noqa: E402
 from repro_torch.netsim.faults import (CLIP_OFF, DefenseConfig,  # noqa: E402
                                        FaultConfig)
@@ -196,6 +222,38 @@ TRA_SHAPE = (10, 36, 256)       # C, P, F of the host loop's aggregate
 TRA_TILE_SHAPE = (16, 1024, 256)   # the reference's bench shape
 PM_SHAPE = (36, 256)            # P, F of one client's upload
 PM_TILE_SHAPE = (4096, 256)     # the reference's bench shape, D = 2**20
+SERVE_ARCH = "qwen1.5-4b"       # the serving launcher's defaults
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 8, 16
+PARITY_LAYERS, PARITY_TOKENS = 2, 4
+FD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (B, KV, G, dh, T, t_blk, pos, window, is_global)
+FD_CASES = (
+    # the reference's sweep (tests/test_flash_decode.py:12-17), pos T - 3
+    (1, 2, 4, 64, 256, 128, 253, None, None),
+    (2, 4, 1, 128, 512, 512, 509, None, None),
+    (2, 1, 8, 64, 1024, 256, 1021, None, None),
+    (1, 2, 2, 32, 384, 128, 381, None, None),
+    # the slice's shape, the cache full and half full
+    (2, 20, 1, 128, 25, 512, 24, None, None),
+    (2, 20, 1, 128, 25, 512, 10, None, None),
+    # starcoder2's GQA
+    (2, 4, 12, 128, 300, 512, 299, None, None),
+    # a gemma3 local layer (masked rows first) and a global one
+    (1, 16, 2, 128, 2048, 512, 1600, 1024, False),
+    (1, 16, 2, 128, 2048, 512, 1600, 1024, True),
+    # ragged T, stablelm's dh = 80
+    (1, 2, 3, 80, 1, 512, 0, None, None),
+    (2, 32, 1, 80, 100, 512, 99, None, None),
+    (1, 2, 3, 80, 383, 64, 380, None, None),
+    # whole splits masked: first (the window), last (past pos), both
+    (2, 4, 2, 128, 1000, 64, 900, 100, False),
+    (2, 4, 2, 128, 1000, 64, 150, None, None),
+    (1, 2, 2, 64, 4000, 64, 2000, 64, False),
+    # dh = 256 (two chunks a lane in f32), G = 5 (a partial head chunk)
+    (1, 2, 5, 256, 700, 64, 650, None, None),
+)
+FD_PATH_SHAPE = (2, 20, 1, 128, 25)     # B, KV, G, dh, T of the serve
+FD_LONG_SHAPES = ((8, 20, 1, 128, 32768), (8, 4, 12, 128, 32768))
 
 
 def fail(msg: str) -> None:
@@ -206,7 +264,7 @@ def fail(msg: str) -> None:
 def zero_counts():
     uf.LAUNCHES = uf.BATCHED_LAUNCHES = nm.LAUNCHES = 0
     ra.LAUNCHES = ra.BATCHED_LAUNCHES = fc.LAUNCHES = 0
-    ta.LAUNCHES = qr.LAUNCHES = pm.LAUNCHES = 0
+    ta.LAUNCHES = qr.LAUNCHES = pm.LAUNCHES = fd.LAUNCHES = 0
 
 
 def counts():
@@ -218,7 +276,8 @@ def counts():
             "fec_recover": fc.LAUNCHES,
             "tra_agg": ta.LAUNCHES,
             "qfed_reweight": qr.LAUNCHES,
-            "packet_mask": pm.LAUNCHES}
+            "packet_mask": pm.LAUNCHES,
+            "flash_decode": fd.LAUNCHES}
 
 
 def expect(**launches):
@@ -1602,6 +1661,247 @@ def run_protocol_phase(card, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+def fd_inputs(B, KV, G, dh, T, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, KV, G, dh), device=dev, generator=g)
+    k, v = (torch.randn((B, T, KV, dh), device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def fd_close(out, ref, dtype):
+    """Max |kernel - plain| and whether it is within the phase's
+    tolerance: f32 rtol/atol 2e-5, K/V in bf16 2e-2 (the reference's)."""
+    tol = FD_TOL[dtype]
+    return (float((out - ref).abs().max()),
+            bool(torch.allclose(out, ref, rtol=tol, atol=tol)))
+
+
+def check_flash_decode_kernel(dev):
+    """flash_decode against its plain version on the card over FD_CASES
+    in f32 and bf16. Returns the largest difference."""
+    worst = 0.0
+    for n, (B, KV, G, dh, T, t_blk, pos, window, glob) in enumerate(
+            FD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = fd_inputs(B, KV, G, dh, T, dtype, 90 + n, dev)
+            bias = fd_ops.decode_bias(T, pos, window, glob, device=dev)
+            out = fd.flash_decode_call(q, k, v, bias, t_blk=t_blk)
+            torch.cuda.synchronize()
+            err, ok = fd_close(out, flash_decode_ref(q, k, v, bias), dtype)
+            splits = fd.plan(B, KV, G, dh, T, k.element_size(), t_blk,
+                             fd._n_sms(dev.index)).n_splits
+            if not ok:
+                fail(f"flash_decode differs from flash_decode_ref at B={B} "
+                     f"KV={KV} G={G} dh={dh} T={T} pos={pos} window="
+                     f"{window} global={glob} {dtype} ({splits} splits): "
+                     f"max |diff| {err:.3e}")
+            worst = max(worst, err)
+            print(f"[serve] flash_decode B={B} KV={KV} G={G} dh={dh} "
+                  f"T={T} pos={pos} window={window} global={glob} "
+                  f"{str(dtype)[6:]}: {splits} splits, max |diff| vs "
+                  f"plain {err:.3e}", flush=True)
+    return worst
+
+
+def serve_argv(dev):
+    return ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--tokens",
+            str(SERVE_TOKENS), "--device", dev]
+
+
+def greedy(cfg, params, prompt, n_tokens, cache):
+    """The launcher's loop (prefill, then the greedy serve step), keeping
+    each step's logits: tokens (B, 1 + n_tokens), logits (n+1, B, V)."""
+    logits, cache = serve.prefill_into_cache(cfg, params, prompt, cache)
+    toks, steps = [logits.argmax(-1).int()[:, None]], [logits]
+    for i in range(n_tokens):
+        logits, cache = decode_mod.decode_step(cfg, params, toks[-1], cache,
+                                               prompt.shape[1] + i)
+        toks.append(logits.argmax(-1).int()[:, None])
+        steps.append(logits)
+    return torch.cat(toks, 1), torch.stack(steps)
+
+
+def check_serve_card_vs_cpu(card):
+    """The served model at full width cut to PARITY_LAYERS layers, params
+    made once on the CPU and copied to the card, greedy on both."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              n_layers=PARITY_LAYERS)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), dtype=torch.int32)
+    T = SERVE_PROMPT + PARITY_TOKENS + 1
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cpu" else tree_to(params, dev)
+        runs[dev] = greedy(cfg, p, prompt.to(dev), PARITY_TOKENS,
+                           decode_mod.init_cache(cfg, SERVE_BATCH, T,
+                                                 torch.float32, dev))
+    (tg, lg), (tc, lc) = runs["cuda"], runs["cpu"]
+    if not torch.equal(tg.cpu(), tc):
+        fail(f"greedy tokens differ between cuda and cpu:\n{tg}\n{tc}")
+    # f32 matmuls over d = 2560 and the 151,936-wide head sum in another
+    # order on the card (TF32 off); logits are O(1)
+    lg = lg.cpu()
+    err = float((lg - lc).abs().max())
+    if not torch.allclose(lg, lc, rtol=1e-4, atol=1e-4):
+        fail(f"serve logits differ between cuda and cpu: max |diff| {err}")
+    print(f"[serve] cuda vs cpu, {SERVE_ARCH} at full width cut to "
+          f"{PARITY_LAYERS} layers, prompt {SERVE_PROMPT}, "
+          f"{PARITY_TOKENS} new tokens: greedy tokens equal "
+          f"{tc[0].tolist()}, max |logit diff| {err:.3e} (rtol/atol "
+          f"1e-4) | {card}", flush=True)
+
+
+def tree_to(tree, dev):
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def time_flash_decode(shape, dtype, card):
+    """flash_decode at (B, KV, G, dh, T) against every row up to T - 1,
+    beside its plain version and scaled_dot_product_attention."""
+    B, KV, G, dh, T = shape
+    q, k, v = fd_inputs(B, KV, G, dh, T, dtype, 77, "cuda")
+    bias = fd_ops.decode_bias(T, T - 1, device="cuda")
+    # SDPA's layouts: (B, H, 1, dh) against (B, KV, T, dh) views, the
+    # mask as an additive (1, 1, 1, T) in q's dtype
+    qs = q.reshape(B, KV * G, 1, dh).to(dtype)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = bias.to(dtype)[None, None, None, :]
+
+    def kernel():
+        return fd.flash_decode_call(q, k, v, bias)
+
+    def plain():
+        return flash_decode_ref(q, k, v, bias)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=G > 1)
+
+    reps = 20
+    p1, k1, k2, p2 = (median_ms(f, reps=reps)
+                      for f in (plain, kernel, kernel, plain))
+    try:
+        lib_ms = median_ms(library, reps=reps)
+    except RuntimeError as e:   # no SDPA backend takes these inputs
+        print(f"[time] scaled_dot_product_attention refused {shape}: {e}",
+              flush=True)
+        lib_ms = None
+    kernel()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    dev_total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                    if "flash_decode" in ev.key)
+    dev_ms = dev_total / reps / 1e3 if dev_total > 0 else None
+    out = kernel()
+    n_bytes = sum(t.nbytes for t in (q, k, v, bias, out))
+    # q.k and p.v: two multiply-adds per (b, kv, g, t, d)
+    bound_ms, bound_by = bound(n_bytes, 4 * B * KV * G * T * dh)
+    print(f"[time] flash_decode B={B} KV={KV} G={G} dh={dh} T={T} "
+          f"{str(dtype)[6:]}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+          f"{p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention "
+          + (f"{lib_ms:.4f} ms" if lib_ms is not None else "not measured")
+          + f" (per call, CUDA events, median of {reps}); kernel device "
+          "time " + (f"{dev_ms:.4f} ms" if dev_ms is not None
+                     else "not measured")
+          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
+          f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
+    return {"ms": statistics.median([k1, k2]),
+            "plain_ms": statistics.median([p1, p2]), "library_ms": lib_ms,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def profile_decode_step(res, card):
+    """Device busy share and top kernels of one steady decode step of the
+    served model, at the cache's last free position."""
+    pos = res.cache["k"].shape[2] - 1
+    tok = res.tokens[:, -1:]
+    for _ in range(2):                                 # warm-up
+        decode_mod.decode_step(res.cfg, res.params, tok, res.cache, pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_mod.decode_step(res.cfg, res.params, tok, res.cache, pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"one {res.cfg.name} decode step (B={SERVE_BATCH}, "
+                  f"T={pos + 1}) | {card}", prof, wall_ms, 1)
+
+
+def run_serve_phase(card):
+    """Phase 10: the kernel against its plain version; the full-width
+    serve through repro_torch.launch.serve with the counts set to 0 just
+    before and read just after; the kernel on the served caches; card
+    against CPU; timings; a profile of one decode step. Returns
+    (flash_decode launches on the serve, the largest kernel error, the
+    path shape's timing)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    err = check_flash_decode_kernel(dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = serve.run(serve_argv("cuda"))
+    got = counts()
+    cfg = res.cfg
+    steps = SERVE_PROMPT + SERVE_TOKENS
+    if got != expect(flash_decode=cfg.n_layers * steps):
+        fail(f"serve launches {got}, expected {cfg.n_layers} x {steps} = "
+             f"{cfg.n_layers * steps} flash_decode launches and no other")
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        fail("the served model's logits are not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve] {cfg.name} at full width (L={cfg.n_layers}, "
+          f"d={cfg.d_model}, H={cfg.n_heads}, dh={cfg.dh}, vocab="
+          f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B params, f32 params "
+          f"and cache) through repro_torch.launch.serve: batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} new "
+          f"tokens; prefill {res.prefill_s:.3f} s, decode "
+          f"{res.decode_s:.3f} s, {res.tok_per_s:.2f} tok/s; "
+          f"{got['flash_decode']} flash_decode launches; tokens in range, "
+          f"logits finite; peak memory {peak_gb:.2f} GB | {card}",
+          flush=True)
+
+    T = res.cache["k"].shape[2]
+    bias = fd_ops.decode_bias(T, T - 2, device=dev)
+    for layer in (0, cfg.n_layers - 1):
+        k, v = res.cache["k"][layer], res.cache["v"][layer]
+        q = fd_inputs(SERVE_BATCH, cfg.n_kv_heads,
+                      cfg.n_heads // cfg.n_kv_heads, cfg.dh, 1,
+                      torch.float32, layer, dev)[0]
+        e, ok = fd_close(fd.flash_decode_call(q, k, v, bias),
+                         flash_decode_ref(q, k, v, bias), torch.float32)
+        if not ok:
+            fail(f"flash_decode differs from its plain version on layer "
+                 f"{layer}'s served cache: {e:.3e}")
+        err = max(err, e)
+        print(f"[serve] flash_decode on layer {layer}'s cache after the "
+              f"run (T={T}): max |diff| vs plain {e:.3e}", flush=True)
+
+    profile_decode_step(res, card)
+    launches = got["flash_decode"]
+    del res
+    torch.cuda.empty_cache()
+    check_serve_card_vs_cpu(card)
+    path_t = time_flash_decode(FD_PATH_SHAPE, torch.float32, card)
+    for shape in FD_LONG_SHAPES:
+        time_flash_decode(shape, torch.bfloat16, card)
+    print(f"[serve] the serving phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, err, path_t
+
+
+# ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
 def median_ms(fn, reps=100, warmup=10):
@@ -2097,6 +2397,7 @@ def main() -> int:
     tra_err = check_tra_agg_kernel(dev)
     qfed_err = check_qfed_kernel(dev)
     proto_counts = run_protocol_phase(card)
+    fd_launches, fd_err, fd_t = run_serve_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
     batched_t = time_batched_uplink(GRID_SHAPE, card)
@@ -2153,6 +2454,9 @@ def main() -> int:
         entry("packet_mask", "src/repro_torch/csrc/packet_mask.cu",
               "src/repro/kernels/packet_mask/packet_mask.py:26",
               proto_counts["packet_mask"], pm_err, pm_t),
+        entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+              "src/repro/kernels/flash_decode/flash_decode.py:65",
+              fd_launches, fd_err, fd_t),
     ]}
     print(card)
     print(json.dumps(summary))

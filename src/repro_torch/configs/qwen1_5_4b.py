@@ -1,0 +1,15 @@
+"""Qwen1.5-4B [hf:Qwen/Qwen1.5-0.5B family]: QKV bias, MHA."""
+from repro_torch.configs.base import ModelConfig, DENSE, register
+
+CONFIG = register(ModelConfig(
+    name="qwen1.5-4b",
+    family=DENSE,
+    n_layers=40,
+    d_model=2560,
+    n_heads=20,
+    n_kv_heads=20,
+    d_ff=6912,
+    vocab=151_936,
+    qkv_bias=True,
+    source="[hf:Qwen/Qwen1.5-0.5B]",
+))

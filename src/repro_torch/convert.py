@@ -1,13 +1,13 @@
 """Carry state across from the JAX reference.
 
-The reference's parameters, EF memory and simulator state arrive as
-numpy arrays (the tests hand them over with ``np.asarray``); these
-helpers turn them into the port's tensors, so both packages can start
-a run from the same weights and state.
+The reference's parameters, EF memory, simulator state, model weights
+and KV caches arrive as numpy arrays (the tests hand them over with
+``np.asarray``); these helpers turn them into the port's tensors, so
+both packages can start a run from the same weights and state.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -67,3 +67,25 @@ def engine_state_from_jax(state, device) -> EngineState:
         echo_mem=f32(state.echo_mem), rep_mem=f32(rep),
         stale_model=f32(state.stale_model), bud_level=f32(state.bud_level),
         bud_loss=f32(state.bud_loss))
+
+
+def model_params_from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """A model's nested parameter dict of arrays (``repro.models``) ->
+    the same nested dict of tensors on ``device``, each leaf in its own
+    dtype and shape (the stacked ``L`` axes kept)."""
+    return {k: model_params_from_jax(v, device) if isinstance(v, dict)
+            else _leaf(np.asarray(v), device) for k, v in tree.items()}
+
+
+def _leaf(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bf16: carry the bits
+        return torch.tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def cache_from_jax(cache: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """The reference's KV cache ``{"k", "v"}`` (L, B, T, KV, dh) ->
+    tensors on ``device`` in its dtype, so a decode can continue from the
+    reference's state."""
+    return model_params_from_jax(cache, device)

@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("uplink_fused", "netsim_mask", "robust_agg", "fec_recover",
-           "packet_mask", "tra_agg", "qfed_reweight")
+           "packet_mask", "tra_agg", "qfed_reweight", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -27,7 +27,13 @@ planted, its vmap fold one launch and bitwise; tra_agg rtol 1e-6 / atol
 its scenario axis one launch, bitwise S single launches; qfed_reweight's
 delta bitwise (one multiply), ssq and h rtol 1e-5, its vmap fold one
 launch; two host-loop rounds on the card against the CPU: cohorts and
-packet masks bitwise, params rtol 1e-4 / atol 1e-5.
+packet masks bitwise, params rtol 1e-4 / atol 1e-5. The flash-decode
+kernel against its plain version: f32 rtol/atol 2e-5, K/V in bf16 2e-2
+(the reference's own), over the reference's sweep, the serving slice's
+shape, GQA, sliding windows, ragged T and whole T splits masked first
+or last; a reduced serve on the card against the CPU from the same
+params: greedy tokens equal, logits rtol 1e-4 / atol 1e-5 (f32 matmuls
+sum in another order on the card), one launch per layer and step.
 """
 import dataclasses
 
@@ -41,10 +47,14 @@ from repro_torch.core.server import FLConfig, run_grid
 from repro_torch.core.sweep import SweepEngine
 from repro_torch.core.tra import DEBIAS_MODES, TRAConfig, sufficiency_report
 from repro_torch.data.synthetic import generate_synthetic
+from repro_torch.configs.base import get_config
 from repro_torch.kernels.common import DENOM_EPS
 from repro_torch.kernels.fec_recover import fec_recover as t_fc
 from repro_torch.kernels.fec_recover import ops as t_fec_ops
 from repro_torch.kernels.fec_recover.ref import fec_recover_ref
+from repro_torch.kernels.flash_decode import flash_decode as t_fd
+from repro_torch.kernels.flash_decode import ops as t_fd_ops
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.netsim_mask import netsim_mask as t_nm
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref
 from repro_torch.kernels.packet_mask import packet_mask as t_pm
@@ -60,6 +70,9 @@ from repro_torch.kernels.tra_agg.ref import tra_agg_ref
 from repro_torch.kernels.uplink_fused import ops as t_ops
 from repro_torch.kernels.uplink_fused import uplink_fused as t_uf
 from repro_torch.kernels.uplink_fused.ref import uplink_ref
+from repro_torch.launch import serve as t_serve
+from repro_torch.models import decode as t_decode
+from repro_torch.models import transformer as t_tf
 from repro_torch.netsim.channel import ge_transition_probs
 from repro_torch.netsim.config import NetSimConfig
 from repro_torch.netsim.faults import DefenseConfig, FaultConfig, flip_bit_op
@@ -616,3 +629,106 @@ def test_cuda_host_loop_rounds_match_cpu(dev, algo):
     for k in params:
         torch.testing.assert_close(params[k].cpu(), params_cpu[k],
                                    rtol=1e-4, atol=1e-5)
+
+
+# (B, KV, G, dh, T, t_blk, pos, window, is_global)
+FD_CASES = [
+    (1, 2, 4, 64, 256, 128, 253, None, None),
+    (2, 4, 1, 128, 512, 512, 509, None, None),
+    (2, 1, 8, 64, 1024, 256, 1021, None, None),
+    (1, 2, 2, 32, 384, 128, 381, None, None),
+    (2, 20, 1, 128, 25, 512, 24, None, None),
+    (2, 20, 1, 128, 25, 512, 10, None, None),
+    (2, 4, 12, 128, 300, 512, 299, None, None),
+    (1, 16, 2, 128, 2048, 512, 1600, 1024, False),
+    (1, 16, 2, 128, 2048, 512, 1600, 1024, True),
+    (1, 2, 3, 80, 1, 512, 0, None, None),
+    (1, 2, 3, 80, 383, 64, 380, None, None),
+    (2, 4, 2, 128, 1000, 64, 900, 100, False),
+    (2, 4, 2, 128, 1000, 64, 150, None, None),
+    (1, 2, 5, 256, 700, 64, 650, None, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_matches_plain(dev, case, dtype):
+    B, KV, G, dh, T, t_blk, pos, window, glob = case
+    rng = np.random.default_rng(T + dh)
+    q = torch.tensor(rng.normal(size=(B, KV, G, dh)).astype(np.float32),
+                     device=dev)
+    k, v = (torch.tensor(rng.normal(size=(B, T, KV, dh)).astype(
+        np.float32), device=dev).to(dtype) for _ in range(2))
+    bias = t_fd_ops.decode_bias(T, pos, window, glob, device=dev)
+    before = t_fd.LAUNCHES
+    out = t_fd.flash_decode_call(q, k, v, bias, t_blk=t_blk)
+    torch.cuda.synchronize()
+    assert t_fd.LAUNCHES == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, flash_decode_ref(q, k, v, bias),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_op_launches_the_kernel(dev):
+    """The op launches the kernel for CUDA tensors, with the reference's
+    layouts: q (B, 1, H, dh) in, (B, H, dh) f32 out."""
+    rng = np.random.default_rng(3)
+    q = torch.tensor(rng.normal(size=(2, 1, 8, 64)).astype(np.float32),
+                     device=dev)
+    k, v = (torch.tensor(rng.normal(size=(2, 40, 2, 64)).astype(np.float32),
+                         device=dev) for _ in range(2))
+    before = t_fd.LAUNCHES
+    out = t_fd_ops.flash_decode(q, k, v, 30, window=16, is_global=False)
+    assert t_fd.LAUNCHES == before + 1 and out.shape == (2, 8, 64)
+    want = t_fd_ops.flash_decode(q.cpu(), k.cpu(), v.cpu(), 30, window=16,
+                                 is_global=False)
+    torch.testing.assert_close(out.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _greedy(cfg, params, prompt, n_tokens, dev):
+    cache = t_decode.init_cache(cfg, prompt.shape[0],
+                                prompt.shape[1] + n_tokens + 1,
+                                torch.float32, dev)
+    logits, cache = t_serve.prefill_into_cache(cfg, params, prompt.to(dev),
+                                               cache)
+    toks, steps = [logits.argmax(-1).int()[:, None]], [logits]
+    for i in range(n_tokens):
+        logits, cache = t_decode.decode_step(cfg, params, toks[-1], cache,
+                                             prompt.shape[1] + i)
+        toks.append(logits.argmax(-1).int()[:, None])
+        steps.append(logits)
+    return torch.cat(toks, 1).cpu(), torch.stack(steps).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kv", [("qwen1.5-4b", None),
+                                     ("gemma3-27b", 2),
+                                     ("starcoder2-15b", 2)])
+def test_cuda_reduced_serve_matches_cpu(dev, name, kv):
+    cfg = get_config(name).reduced()
+    if kv is not None:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+    params = t_tf.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)), dtype=torch.int32)
+    before = t_fd.LAUNCHES
+    tg, lg = _greedy(cfg, _to(params, dev), prompt, 12, dev)
+    assert t_fd.LAUNCHES == before + cfg.n_layers * 20
+    tc, lc = _greedy(cfg, params, prompt, 12, "cpu")
+    assert torch.equal(tg, tc)
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_launches_once_per_layer_and_step(dev):
+    before = t_fd.LAUNCHES
+    res = t_serve.run(["--reduced", "--tokens", "4"])
+    assert res.tokens.is_cuda and res.tokens.shape == (2, 5)
+    assert t_fd.LAUNCHES == before + res.cfg.n_layers * (8 + 4)
