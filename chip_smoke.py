@@ -12,9 +12,9 @@ paths (the quickstart's federated rounds, the paper's bursty-loss grid
 as one scenario-batched sweep, the corruption-tolerance grid of fault
 rate x defense, the full-duplex recovery grid of recovery policy x
 loss rate, the protocol layer's host-loop round, and greedy serving of
-qwen1.5-4b at full width) through the kernels, compares the card's runs
-with the CPU's, times the kernels, and ends with a one-line JSON
-verdict. Any failed check exits non-zero; with no card it exits
+qwen1.5-4b and starcoder2-15b at full width) through the kernels,
+compares the card's runs with the CPU's, times the kernels, and ends
+with a one-line JSON verdict. Any failed check exits non-zero; with no card it exits
 non-zero at once and prints no result.
 
 Phases:
@@ -102,18 +102,23 @@ Phases:
                 rtol/atol 2e-5 and bf16 K/V 2e-2, over FD_CASES: the
                 reference's sweep, the serve's (2, 20, 1, 128, T=25),
                 starcoder2's GQA, a gemma3 local and global layer, ragged
-                T, whole T splits masked first and last. Then
-                repro_torch.launch.serve at its defaults (qwen1.5-4b at
-                full width, f32 params and cache, batch 2, prompt 8, 16
-                new tokens) with the counts set to 0 just before and
-                read just after (40 layers x 24 steps = 960 flash_decode
-                launches): tokens in range, logits finite, prefill s,
-                tok/s, peak memory; the kernel on layers 0 and 39's
-                caches; a profile of one decode step; the model at full
-                width cut to 2 layers on the card and the CPU from the
-                same params (greedy tokens equal, logits rtol/atol 1e-4);
-                timings at the serve's shape and two long bf16 caches
-                (T = 32,768) beside the plain version and
+                T, whole T splits masked first and last, and the tiled
+                kernel's edges (G = 6, 12, 16, 20; T under a tile and not
+                a multiple of it; whole tiles masked first and last; dh =
+                80 and 256; split boundaries inside tiles). Then
+                repro_torch.launch.serve at its defaults (batch 2, prompt
+                8, 16 new tokens, f32 params and cache) for qwen1.5-4b
+                (MHA) and then starcoder2-15b (G = 12, 15.96 B params),
+                both at full width, each with the counts set to 0 just
+                before and read just after (40 layers x 24 steps = 960
+                flash_decode launches each): tokens in range, logits
+                finite, prefill s, tok/s, peak memory; the kernel on
+                layers 0 and 39's caches; a profile of one decode step;
+                the model at full width cut to 2 layers on the card and
+                the CPU from the same params (greedy tokens equal, logits
+                rtol/atol 1e-4); timings at the two serves' shapes, two
+                long bf16 caches (T = 32,768) and the GQA one in f32,
+                beside the plain version and
                 scaled_dot_product_attention
 """
 from __future__ import annotations
@@ -223,6 +228,7 @@ TRA_TILE_SHAPE = (16, 1024, 256)   # the reference's bench shape
 PM_SHAPE = (36, 256)            # P, F of one client's upload
 PM_TILE_SHAPE = (4096, 256)     # the reference's bench shape, D = 2**20
 SERVE_ARCH = "qwen1.5-4b"       # the serving launcher's defaults
+GQA_ARCH = "starcoder2-15b"     # G = 12: 48 query heads over 4 kv heads
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 8, 16
 PARITY_LAYERS, PARITY_TOKENS = 2, 4
 FD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -251,8 +257,25 @@ FD_CASES = (
     (1, 2, 2, 64, 4000, 64, 2000, 64, False),
     # dh = 256 (two chunks a lane in f32), G = 5 (a partial head chunk)
     (1, 2, 5, 256, 700, 64, 650, None, None),
+    # the tiled kernel's edges: G = 16 and G = 6 (qwen3-moe's, mixtral's)
+    (1, 2, 16, 128, 1000, 128, 997, None, None),
+    (2, 2, 6, 128, 777, 256, 770, None, None),
+    # G = 12: T not a multiple of the tile, T under one tile
+    (1, 4, 12, 128, 1000, 512, 999, None, None),
+    (2, 4, 12, 128, 20, 512, 19, None, None),
+    # G = 12, one split: whole tiles masked first (the window), last
+    (1, 4, 12, 128, 2048, 2048, 1900, 128, False),
+    (1, 4, 12, 128, 2048, 2048, 300, None, None),
+    # G = 12 at dh = 80 and dh = 256
+    (1, 2, 12, 80, 500, 128, 480, None, None),
+    (1, 2, 12, 256, 500, 128, 480, None, None),
+    # splits of 100 rows: split boundaries inside tiles of 32 and 64
+    (1, 2, 12, 128, 1000, 100, 990, None, None),
+    # G = 20: head chunks of 16 + 4
+    (1, 2, 20, 64, 500, 128, 490, None, None),
 )
 FD_PATH_SHAPE = (2, 20, 1, 128, 25)     # B, KV, G, dh, T of the serve
+FD_GQA_PATH_SHAPE = (2, 4, 12, 128, 25)  # the starcoder2-15b serve's
 FD_LONG_SHAPES = ((8, 20, 1, 128, 32768), (8, 4, 12, 128, 32768))
 
 
@@ -1691,8 +1714,9 @@ def check_flash_decode_kernel(dev):
             out = fd.flash_decode_call(q, k, v, bias, t_blk=t_blk)
             torch.cuda.synchronize()
             err, ok = fd_close(out, flash_decode_ref(q, k, v, bias), dtype)
-            splits = fd.plan(B, KV, G, dh, T, k.element_size(), t_blk,
-                             fd._n_sms(dev.index)).n_splits
+            pl = fd.plan(B, KV, G, dh, T, k.element_size(), t_blk,
+                         fd._n_sms(dev.index))
+            splits = f"{pl.kind}, {pl.n_splits}"
             if not ok:
                 fail(f"flash_decode differs from flash_decode_ref at B={B} "
                      f"KV={KV} G={G} dh={dh} T={T} pos={pos} window="
@@ -1706,8 +1730,8 @@ def check_flash_decode_kernel(dev):
     return worst
 
 
-def serve_argv(dev):
-    return ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+def serve_argv(dev, arch=SERVE_ARCH):
+    return ["--arch", arch, "--batch", str(SERVE_BATCH),
             "--prompt-len", str(SERVE_PROMPT), "--tokens",
             str(SERVE_TOKENS), "--device", dev]
 
@@ -1725,11 +1749,11 @@ def greedy(cfg, params, prompt, n_tokens, cache):
     return torch.cat(toks, 1), torch.stack(steps)
 
 
-def check_serve_card_vs_cpu(card):
+def check_serve_card_vs_cpu(card, arch=SERVE_ARCH):
     """The served model at full width cut to PARITY_LAYERS layers, params
     made once on the CPU and copied to the card, greedy on both."""
-    cfg = dataclasses.replace(get_config(SERVE_ARCH),
-                              n_layers=PARITY_LAYERS)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=PARITY_LAYERS)
     params = tf.init_params(cfg, torch.Generator().manual_seed(0))
     prompt = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), dtype=torch.int32)
@@ -1749,11 +1773,12 @@ def check_serve_card_vs_cpu(card):
     err = float((lg - lc).abs().max())
     if not torch.allclose(lg, lc, rtol=1e-4, atol=1e-4):
         fail(f"serve logits differ between cuda and cpu: max |diff| {err}")
-    print(f"[serve] cuda vs cpu, {SERVE_ARCH} at full width cut to "
-          f"{PARITY_LAYERS} layers, prompt {SERVE_PROMPT}, "
-          f"{PARITY_TOKENS} new tokens: greedy tokens equal "
-          f"{tc[0].tolist()}, max |logit diff| {err:.3e} (rtol/atol "
-          f"1e-4) | {card}", flush=True)
+    print(f"[serve] cuda vs cpu, {arch} at full width cut to "
+          f"{PARITY_LAYERS} layers ({cfg.n_params() / 1e9:.3f} B params), "
+          f"prompt {SERVE_PROMPT}, {PARITY_TOKENS} new tokens: greedy "
+          f"tokens equal {tc[0].tolist()}, max |logit diff| {err:.3e} "
+          f"(rtol/atol 1e-4); {time.perf_counter() - t0:.1f} s | {card}",
+          flush=True)
 
 
 def tree_to(tree, dev):
@@ -1792,16 +1817,8 @@ def time_flash_decode(shape, dtype, card):
         print(f"[time] scaled_dot_product_attention refused {shape}: {e}",
               flush=True)
         lib_ms = None
-    kernel()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            kernel()
-        torch.cuda.synchronize()
-    dev_total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                    if "flash_decode" in ev.key)
-    dev_ms = dev_total / reps / 1e3 if dev_total > 0 else None
+    dev_ms = device_total_ms(kernel, reps, "flash_decode")
+    lib_dev_ms = None if lib_ms is None else device_total_ms(library, reps)
     out = kernel()
     n_bytes = sum(t.nbytes for t in (q, k, v, bias, out))
     # q.k and p.v: two multiply-adds per (b, kv, g, t, d)
@@ -1810,14 +1827,33 @@ def time_flash_decode(shape, dtype, card):
           f"{str(dtype)[6:]}: kernel {k1:.4f}/{k2:.4f} ms, plain "
           f"{p1:.4f}/{p2:.4f} ms, scaled_dot_product_attention "
           + (f"{lib_ms:.4f} ms" if lib_ms is not None else "not measured")
-          + f" (per call, CUDA events, median of {reps}); kernel device "
-          "time " + (f"{dev_ms:.4f} ms" if dev_ms is not None
-                     else "not measured")
-          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
-          f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
+          + f" (per call, CUDA events, median of {reps}); device time "
+          "(torch.profiler): kernel " + (f"{dev_ms:.4f} ms" if dev_ms
+                                         is not None else "not measured")
+          + ", scaled_dot_product_attention " + (
+              f"{lib_dev_ms:.4f} ms" if lib_dev_ms is not None
+              else "not measured") + f"; bound {bound_ms:.6f} ms by "
+          f"{bound_by} ({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
     return {"ms": statistics.median([k1, k2]),
             "plain_ms": statistics.median([p1, p2]), "library_ms": lib_ms,
             "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def device_total_ms(fn, reps, name=""):
+    """Device time a call of ``fn``, summed over the CUDA kernels whose
+    name holds ``name`` (all of them by default), from torch.profiler;
+    None where it saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if name in ev.key
+                and ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total / reps / 1e3 if total > 0 else None
 
 
 def profile_decode_step(res, card):
@@ -1838,64 +1874,80 @@ def profile_decode_step(res, card):
                   f"T={pos + 1}) | {card}", prof, wall_ms, 1)
 
 
-def run_serve_phase(card):
-    """Phase 10: the kernel against its plain version; the full-width
-    serve through repro_torch.launch.serve with the counts set to 0 just
-    before and read just after; the kernel on the served caches; card
-    against CPU; timings; a profile of one decode step. Returns
-    (flash_decode launches on the serve, the largest kernel error, the
-    path shape's timing)."""
-    t_phase = time.perf_counter()
+def serve_full_width(arch, card):
+    """repro_torch.launch.serve at its defaults for ``arch`` at full width,
+    the counts set to 0 just before and read just after: one flash_decode
+    launch per layer and step and no other kernel's. Then the kernel on
+    the first and last layers' caches against its plain version, and a
+    profile of one decode step. Returns (launches, the largest error)."""
     dev = torch.device("cuda")
-    err = check_flash_decode_kernel(dev)
-
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    res = serve.run(serve_argv("cuda"))
+    res = serve.run(serve_argv("cuda", arch))
     got = counts()
     cfg = res.cfg
     steps = SERVE_PROMPT + SERVE_TOKENS
     if got != expect(flash_decode=cfg.n_layers * steps):
-        fail(f"serve launches {got}, expected {cfg.n_layers} x {steps} = "
-             f"{cfg.n_layers * steps} flash_decode launches and no other")
+        fail(f"{arch} serve launches {got}, expected {cfg.n_layers} x "
+             f"{steps} = {cfg.n_layers * steps} flash_decode launches and "
+             f"no other")
     if not bool(torch.isfinite(res.prefill_logits).all()):
-        fail("the served model's logits are not finite")
+        fail(f"the served {arch}'s logits are not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    G = cfg.n_heads // cfg.n_kv_heads
     print(f"[serve] {cfg.name} at full width (L={cfg.n_layers}, "
-          f"d={cfg.d_model}, H={cfg.n_heads}, dh={cfg.dh}, vocab="
-          f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B params, f32 params "
-          f"and cache) through repro_torch.launch.serve: batch "
-          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} new "
+          f"d={cfg.d_model}, H={cfg.n_heads}, KV={cfg.n_kv_heads} (G={G}), "
+          f"dh={cfg.dh}, vocab={cfg.vocab}, {cfg.n_params() / 1e9:.3f} B "
+          f"params, f32 params and cache) through repro_torch.launch.serve:"
+          f" batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} new "
           f"tokens; prefill {res.prefill_s:.3f} s, decode "
           f"{res.decode_s:.3f} s, {res.tok_per_s:.2f} tok/s; "
           f"{got['flash_decode']} flash_decode launches; tokens in range, "
           f"logits finite; peak memory {peak_gb:.2f} GB | {card}",
           flush=True)
 
+    err = 0.0
     T = res.cache["k"].shape[2]
     bias = fd_ops.decode_bias(T, T - 2, device=dev)
     for layer in (0, cfg.n_layers - 1):
         k, v = res.cache["k"][layer], res.cache["v"][layer]
-        q = fd_inputs(SERVE_BATCH, cfg.n_kv_heads,
-                      cfg.n_heads // cfg.n_kv_heads, cfg.dh, 1,
+        q = fd_inputs(SERVE_BATCH, cfg.n_kv_heads, G, cfg.dh, 1,
                       torch.float32, layer, dev)[0]
         e, ok = fd_close(fd.flash_decode_call(q, k, v, bias),
                          flash_decode_ref(q, k, v, bias), torch.float32)
         if not ok:
-            fail(f"flash_decode differs from its plain version on layer "
-                 f"{layer}'s served cache: {e:.3e}")
+            fail(f"flash_decode differs from its plain version on {arch}'s "
+                 f"layer {layer}'s served cache: {e:.3e}")
         err = max(err, e)
-        print(f"[serve] flash_decode on layer {layer}'s cache after the "
-              f"run (T={T}): max |diff| vs plain {e:.3e}", flush=True)
-
+        print(f"[serve] flash_decode on {arch}'s layer {layer} cache after "
+              f"the run (T={T}, G={G}): max |diff| vs plain {e:.3e}",
+              flush=True)
     profile_decode_step(res, card)
-    launches = got["flash_decode"]
-    del res
-    torch.cuda.empty_cache()
-    check_serve_card_vs_cpu(card)
+    return got["flash_decode"], err
+
+
+def run_serve_phase(card):
+    """Phase 10: the kernel against its plain version; the full-width
+    serves of qwen1.5-4b (MHA) and starcoder2-15b (G = 12), each through
+    repro_torch.launch.serve with the counts set to 0 just before and read
+    just after, the kernel on its served caches, and each model cut to 2
+    layers on the card against the CPU; timings. Returns (flash_decode
+    launches on the two serves, the largest kernel error, the path
+    shape's timing)."""
+    t_phase = time.perf_counter()
+    err = check_flash_decode_kernel(torch.device("cuda"))
+    launches = 0
+    for arch in (SERVE_ARCH, GQA_ARCH):
+        n, e = serve_full_width(arch, card)
+        launches += n
+        err = max(err, e)
+        torch.cuda.empty_cache()   # the model and cache went with the run
+        check_serve_card_vs_cpu(card, arch)
     path_t = time_flash_decode(FD_PATH_SHAPE, torch.float32, card)
+    time_flash_decode(FD_GQA_PATH_SHAPE, torch.float32, card)
     for shape in FD_LONG_SHAPES:
         time_flash_decode(shape, torch.bfloat16, card)
+    time_flash_decode(FD_LONG_SHAPES[1], torch.float32, card)
     print(f"[serve] the serving phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, err, path_t

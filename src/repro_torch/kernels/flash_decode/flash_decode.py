@@ -6,7 +6,8 @@ choice between the kernel and its plain version (``ref.py``) is made by
 the ``repro_torch::flash_decode`` op in ``ops.py``, by device alone.
 ``LAUNCHES`` counts the calls that launch it in this process (one per
 call, whether the call runs one pass or two). ``plan`` is the launch
-geometry, plain Python so the CPU tests reach it.
+geometry, plain Python so the CPU tests reach it, cached on its
+arguments.
 """
 from __future__ import annotations
 
@@ -21,45 +22,93 @@ from repro_torch.kernels.uplink_fused.uplink_fused import _check
 
 LAUNCHES = 0
 MAX_DH = 256
-CTAS_PER_SM = 8         # pass 1 aims at about this many CTAs on each SM
+HEADS = 16              # query heads a tiled CTA holds: the MMA's M
+ROWS_MAX_G = 2          # G up to this runs the row loop (kind "rows")
+ROWS_CTAS_PER_SM = 8    # the row loop's splits aim at this many CTAs an SM
+SMEM_PER_SM = 233_472   # bytes of shared memory on an H100 SM
+SMEM_PER_CTA = 232_448  # the most one CTA may ask for
+SMEM_RESERVED = 1_024   # the runtime's own share of each CTA's
+MAX_STAGES = 4
+TILE_ROWS = {"simt": 32, "mma": 64}
+KINDS = {"rows": 0, "simt": 1, "mma": 2}
 
 
 class Plan(NamedTuple):
-    gmax: int           # query heads a CTA holds: 1, 2, 4 or 8
-    n_hc: int           # head chunks: ceil(G / gmax)
-    cpl: int            # 16-byte chunks of a row per lane: 1 or 2
-    lpr: int            # lanes that read one row: a power of two <= 32
+    kind: str           # "rows" (G <= ROWS_MAX_G), "simt" (f32 tiles) or
+    #                     "mma" (bf16 tiles on tensor cores)
+    heads: int          # query heads a CTA holds
+    n_hc: int           # head chunks: ceil(G / heads)
+    tile: int           # rows of a tile (0 for "rows")
+    stages: int         # ring slots of tiles in shared memory (0: "rows")
+    smem: int           # dynamic shared memory of a pass-1 CTA, bytes
+    ctas_per_sm: int    # pass-1 CTAs an SM is planned to hold at once
+    cpl: int            # "rows": 16-byte chunks of a row per lane, 1 or 2
+    lpr: int            # "rows": lanes that read one row, a power of two
     n_splits: int       # T splits, each one CTA per (head chunk, kv, b)
     split_len: int      # rows of a split; the last may hold fewer
 
 
+def _tile_smem(kind: str, dh: int, stages: int) -> int:
+    """Dynamic shared memory of a tiled CTA, as ``csrc/flash_decode.cu``
+    carves it (``simt_smem``, ``mma_smem``): the K and V rings, rows an
+    odd number of 16-byte chunks apart, then the kind's own buffers."""
+    rows = TILE_ROWS[kind]
+    if kind == "simt":
+        sstride = (dh // 4) | 1
+        extra = 4 * (8 * HEADS * (rows + 1) + HEADS * (rows + 4)
+                     + 3 * HEADS)
+    else:
+        sstride = 2 * ((dh // 8 + 1) // 2) + 1
+        extra = 2 * HEADS * (rows + 8) + 4 * 2 * 4 * HEADS
+    return 2 * stages * rows * sstride * 16 + extra
+
+
+@functools.lru_cache(maxsize=None)
 def plan(B: int, KV: int, G: int, dh: int, T: int, elem_bytes: int,
          t_blk: int, n_sms: int) -> Plan:
     """Launch geometry for q (B, KV, G, dh) against T cache rows of
-    ``elem_bytes``-byte elements: a 16-byte chunk is 16 / elem_bytes
-    elements, a row dh / that many chunks. The T splits are enough for
-    about ``CTAS_PER_SM`` CTAs on each of ``n_sms`` SMs, none shorter than
-    ``t_blk`` rows, and none empty."""
-    ch = dh * elem_bytes // 16
-    cpl = -(-ch // 32)
-    lpr = 1
-    while lpr < -(-ch // cpl):
-        lpr *= 2
-    gmax = 1
-    while gmax < min(G, 8):
-        gmax *= 2
-    n_hc = -(-G // gmax)
-    want = -(-CTAS_PER_SM * n_sms // (B * KV * n_hc))
+    ``elem_bytes``-byte elements. G <= ROWS_MAX_G runs the row loop;
+    otherwise a CTA holds all G heads (chunks of 16 past 16) and a ring
+    of tiles: the most stages, up to MAX_STAGES, that let 2 CTAs share
+    an SM, else 1. The T splits fill about one wave of CTAs over ``n_sms``
+    SMs (the row loop: about ROWS_CTAS_PER_SM CTAs an SM), none shorter
+    than ``t_blk`` rows, none empty."""
+    cpl = lpr = stages = tile = 0
+    if G <= ROWS_MAX_G:
+        kind, heads, per_sm = "rows", G, ROWS_CTAS_PER_SM
+        ch = dh * elem_bytes // 16
+        cpl = -(-ch // 32)
+        lpr = 1
+        while lpr < -(-ch // cpl):
+            lpr *= 2
+        smem = 4 * 4 * G * (2 + dh)
+    else:
+        kind = "mma" if elem_bytes == 2 else "simt"
+        heads, tile = min(G, HEADS), TILE_ROWS[kind]
+        fixed = _tile_smem(kind, dh, 0)
+        slot = _tile_smem(kind, dh, 1) - fixed
+        for per_sm in (2, 1):
+            room = min(SMEM_PER_SM // per_sm - SMEM_RESERVED, SMEM_PER_CTA)
+            stages = min(MAX_STAGES, (room - fixed) // slot)
+            if stages >= 2:
+                break
+        smem = _tile_smem(kind, dh, stages)
+    n_hc = -(-G // heads)
+    if kind == "rows":
+        want = -(-per_sm * n_sms // (B * KV * n_hc))
+    else:   # one whole wave: a second, ragged one measured slower
+        want = per_sm * n_sms // (B * KV * n_hc)
     n_splits = max(1, min(T // max(t_blk, 1), want))
     split_len = -(-T // n_splits)
-    return Plan(gmax, n_hc, cpl, lpr, -(-T // split_len), split_len)
+    return Plan(kind, heads, n_hc, tile, stages, smem, per_sm, cpl, lpr,
+                -(-T // split_len), split_len)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("flash_decode")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_decode_launch.argtypes = [ptr] * 8 + [i32] * 12 + [
+    lib.flash_decode_launch.argtypes = [ptr] * 8 + [i32] * 13 + [
         ctypes.c_float, i32, ptr]
     lib.flash_decode_launch.restype = i32
     lib.flash_decode_error_string.argtypes = [i32]
@@ -88,8 +137,9 @@ def flash_decode_call(q, k, v, bias, *, t_blk: int = 512):
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be (B, KV, G, dh) and k (B, T, KV, dh), "
                          f"not {tuple(q.shape)} and {tuple(k.shape)}")
-    if k.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"k, v must be float32 or bfloat16, not {k.dtype}")
+    kd = k.dtype
+    if kd not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"k, v must be float32 or bfloat16, not {kd}")
     B, KV, G, dh = q.shape
     T = k.shape[1]
     elem = k.element_size()
@@ -99,28 +149,43 @@ def flash_decode_call(q, k, v, bias, *, t_blk: int = 512):
                          f", T={T}: dh a multiple of {16 // elem} up to "
                          f"{MAX_DH}, T >= 1, B and KV in [1, 65535]")
     dev = q.device
-    _check("q", q, (B, KV, G, dh), torch.float32, dev)
-    _check("k", k, (B, T, KV, dh), k.dtype, dev)
-    _check("v", v, (B, T, KV, dh), k.dtype, dev)
-    _check("bias", bias, (T,), torch.float32, dev)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    kv_shape = (B, T, KV, dh)
+    # one pass over the common case; _check names the first fault
+    if (k.device != dev or v.device != dev or bias.device != dev
+            or q.dtype != torch.float32 or v.dtype != kd
+            or bias.dtype != torch.float32 or k.shape != kv_shape
+            or v.shape != kv_shape or bias.shape != (T,)
+            or not (q.is_contiguous() and k.is_contiguous()
+                    and v.is_contiguous() and bias.is_contiguous())):
+        _check("q", q, (B, KV, G, dh), torch.float32, dev)
+        _check("k", k, kv_shape, kd, dev)
+        _check("v", v, kv_shape, kd, dev)
+        _check("bias", bias, (T,), torch.float32, dev)
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("q, k and v must be 16-byte aligned")
     pl = plan(B, KV, G, dh, T, elem, t_blk, _n_sms(dev.index))
     out = torch.empty((B, KV, G, dh), dtype=torch.float32, device=dev)
     parts = (None, None, None)
     if pl.n_splits > 1:
-        parts = (torch.empty((B, KV, pl.n_splits, G), device=dev),
-                 torch.empty((B, KV, pl.n_splits, G), device=dev),
-                 torch.empty((B, KV, pl.n_splits, G, dh), device=dev))
+        # one buffer cut into acc (B, KV, n_splits, G, dh), then m and l
+        # (B, KV, n_splits, G): acc first, so its rows stay 16-byte
+        # aligned. The pointers go as numbers: no view is made. The
+        # caching allocator hands the buffer out again only in this
+        # stream's order, after the kernel.
+        n = B * KV * pl.n_splits * G
+        buf = torch.empty(n * (dh + 2), dtype=torch.float32, device=dev)
+        acc = buf.data_ptr()
+        parts = (acc + 4 * n * dh, acc + 4 * n * (dh + 1), acc)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the current stream's handle, without building a Stream object (a
+    # few microseconds a call)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     LAUNCHES += 1
     err = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), *(None if t is None else t.data_ptr() for t in parts),
-        B, T, KV, G, dh, pl.n_splits, pl.split_len, pl.gmax, pl.n_hc,
-        pl.cpl, pl.lpr, int(k.dtype == torch.bfloat16), dh ** -0.5,
-        dev.index, stream)
+        out.data_ptr(), *parts,
+        B, T, KV, G, dh, pl.n_splits, pl.split_len, KINDS[pl.kind], pl.n_hc,
+        pl.stages, pl.cpl, pl.lpr, elem == 2, dh ** -0.5, dev.index, stream)
     if err:
         raise RuntimeError("flash_decode kernel launch failed: "
                            + lib.flash_decode_error_string(err).decode())

@@ -30,8 +30,9 @@ launch; two host-loop rounds on the card against the CPU: cohorts and
 packet masks bitwise, params rtol 1e-4 / atol 1e-5. The flash-decode
 kernel against its plain version: f32 rtol/atol 2e-5, K/V in bf16 2e-2
 (the reference's own), over the reference's sweep, the serving slice's
-shape, GQA, sliding windows, ragged T and whole T splits masked first
-or last; a reduced serve on the card against the CPU from the same
+shape, GQA up to G = 20, sliding windows, ragged T, whole T splits and
+whole tiles masked first or last, split boundaries inside tiles; a
+reduced serve on the card against the CPU from the same
 params: greedy tokens equal, logits rtol 1e-4 / atol 1e-5 (f32 matmuls
 sum in another order on the card), one launch per layer and step.
 """
@@ -647,6 +648,21 @@ FD_CASES = [
     (2, 4, 2, 128, 1000, 64, 900, 100, False),
     (2, 4, 2, 128, 1000, 64, 150, None, None),
     (1, 2, 5, 256, 700, 64, 650, None, None),
+    # the tiled kernel's edges: G = 16 and G = 6; G = 12 with T not a
+    # multiple of the tile and under one tile; whole tiles masked first
+    # (the window) and last (past pos) in one split; dh = 80 and 256;
+    # splits of 100 rows, so split boundaries fall inside tiles; G = 20,
+    # head chunks of 16 + 4
+    (1, 2, 16, 128, 1000, 128, 997, None, None),
+    (2, 2, 6, 128, 777, 256, 770, None, None),
+    (1, 4, 12, 128, 1000, 512, 999, None, None),
+    (2, 4, 12, 128, 20, 512, 19, None, None),
+    (1, 4, 12, 128, 2048, 2048, 1900, 128, False),
+    (1, 4, 12, 128, 2048, 2048, 300, None, None),
+    (1, 2, 12, 80, 500, 128, 480, None, None),
+    (1, 2, 12, 256, 500, 128, 480, None, None),
+    (1, 2, 12, 128, 1000, 100, 990, None, None),
+    (1, 2, 20, 64, 500, 128, 490, None, None),
 ]
 
 
@@ -707,14 +723,7 @@ def _greedy(cfg, params, prompt, n_tokens, dev):
     return torch.cat(toks, 1).cpu(), torch.stack(steps).cpu()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,kv", [("qwen1.5-4b", None),
-                                     ("gemma3-27b", 2),
-                                     ("starcoder2-15b", 2)])
-def test_cuda_reduced_serve_matches_cpu(dev, name, kv):
-    cfg = get_config(name).reduced()
-    if kv is not None:
-        cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+def _serve_card_vs_cpu(dev, cfg):
     params = t_tf.init_params(cfg, torch.Generator().manual_seed(0))
     prompt = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 8)), dtype=torch.int32)
@@ -724,6 +733,27 @@ def test_cuda_reduced_serve_matches_cpu(dev, name, kv):
     tc, lc = _greedy(cfg, params, prompt, 12, "cpu")
     assert torch.equal(tg, tc)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kv", [("qwen1.5-4b", None),
+                                     ("gemma3-27b", 2),
+                                     ("starcoder2-15b", 2)])
+def test_cuda_reduced_serve_matches_cpu(dev, name, kv):
+    cfg = get_config(name).reduced()
+    if kv is not None:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+    _serve_card_vs_cpu(dev, cfg)
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_gqa12_serve_matches_cpu(dev):
+    """starcoder2-15b at reduced width with its G = 12: 24 query heads over
+    n_kv_heads = 2, so the serve runs the tiled kernel's f32 path."""
+    cfg = dataclasses.replace(get_config("starcoder2-15b").reduced(),
+                              n_heads=24, n_kv_heads=2)
+    assert cfg.n_heads // cfg.n_kv_heads == 12
+    _serve_card_vs_cpu(dev, cfg)
 
 
 @pytest.mark.cuda

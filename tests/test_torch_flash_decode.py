@@ -82,7 +82,8 @@ def test_flash_decode_matches_reference(B, KV, G, dh, T, blk, dtype):
 
 @pytest.mark.parametrize("T", [1, 25, 100, 384])
 @pytest.mark.parametrize("B,KV,G,dh", [(2, 20, 1, 128), (1, 2, 3, 80),
-                                       (2, 4, 12, 32), (1, 1, 2, 64)])
+                                       (2, 4, 12, 32), (1, 1, 2, 64),
+                                       (1, 2, 16, 64), (2, 2, 6, 128)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_decode_ragged_T(T, B, KV, G, dh, dtype):
     """Any T >= 1 with the default t_blk, against the reference's oracle
@@ -100,24 +101,47 @@ def test_flash_decode_ragged_T(T, B, KV, G, dh, dtype):
 @pytest.mark.parametrize("B,KV,G,dh,elem", [
     (2, 20, 1, 128, 4), (2, 32, 1, 80, 4), (2, 4, 12, 128, 4),
     (8, 20, 1, 128, 2), (8, 4, 12, 128, 2), (1, 16, 2, 80, 2),
-    (1, 1, 1, 256, 4), (4, 2, 5, 32, 4)])
+    (1, 1, 1, 256, 4), (4, 2, 5, 32, 4), (2, 8, 6, 128, 2),
+    (2, 4, 16, 128, 4)])
 def test_launch_plan_covers_the_work(T, B, KV, G, dh, elem):
     """The kernel's geometry: every T row in exactly one non-empty split,
-    every query head in one head chunk, every 16-byte chunk of a row read
-    by one lane, within the template instances the kernel has."""
+    every query head in one CTA's head set of at most 16, G <= 2 on the
+    row loop and the rest on tiles (tensor cores for bf16), the tile ring
+    within an SM's shared memory for the CTAs the plan puts there."""
     for t_blk in (1, 64, 512):
         p = t_fd.plan(B, KV, G, dh, T, elem, t_blk, n_sms=132)
         assert p.n_splits >= 1 and (p.n_splits - 1) * p.split_len < T \
             <= p.n_splits * p.split_len
         assert p.n_splits == 1 or p.split_len >= min(t_blk, T)
-        assert p.gmax in (1, 2, 4, 8) and p.gmax * p.n_hc >= G \
-            > p.gmax * (p.n_hc - 1)
-        ch = dh * elem // 16
-        assert p.lpr & (p.lpr - 1) == 0 and p.lpr <= 32
-        assert p.lpr * p.cpl >= ch and p.cpl in ((1,) if elem == 2
-                                                 else (1, 2))
-    # the serving slice's shape is one split: one pass, no combine
+        assert 1 <= p.heads <= 16 and p.heads * p.n_hc >= G \
+            > p.heads * (p.n_hc - 1)
+        assert p.smem <= t_fd.SMEM_PER_CTA
+        assert p.ctas_per_sm * (p.smem + t_fd.SMEM_RESERVED) \
+            <= t_fd.SMEM_PER_SM
+        if G <= t_fd.ROWS_MAX_G:
+            assert p.kind == "rows" and p.heads == G
+            ch = dh * elem // 16
+            assert p.lpr & (p.lpr - 1) == 0 and p.lpr <= 32
+            assert p.lpr * p.cpl >= ch and p.cpl in ((1,) if elem == 2
+                                                     else (1, 2))
+        else:
+            assert p.kind == ("mma" if elem == 2 else "simt")
+            assert p.heads == min(G, 16) and 2 <= p.stages <= 4
+            assert p.tile == t_fd.TILE_ROWS[p.kind]
+            assert p.smem == t_fd._tile_smem(p.kind, dh, p.stages)
+            # no more splits than one wave of CTAs asks for
+            assert p.n_splits == 1 or B * KV * p.n_hc * p.n_splits \
+                <= p.ctas_per_sm * 132
+    # the serves' shapes are one split: one pass, no combine
     assert t_fd.plan(2, 20, 1, 128, 25, 4, 512, 132).n_splits == 1
+    assert t_fd.plan(2, 4, 12, 128, 25, 4, 512, 132).n_splits == 1
+
+
+def test_launch_plan_is_cached():
+    t_fd.plan.cache_clear()
+    a = t_fd.plan(2, 4, 12, 128, 25, 4, 512, 132)
+    assert t_fd.plan(2, 4, 12, 128, 25, 4, 512, 132) is a
+    assert t_fd.plan.cache_info().hits >= 1
 
 
 def test_flash_decode_respects_pos_mask():

@@ -37,6 +37,20 @@ def test_greedy_serve_matches_reference(name, kv):
     jc, tc = (b.get_config(name).reduced() for b in (j_base, t_base))
     if kv is not None:
         jc, tc = (dataclasses.replace(c, n_kv_heads=kv) for c in (jc, tc))
+    _greedy_matches_reference(jc, tc)
+
+
+def test_greedy_serve_gqa12_matches_reference():
+    """starcoder2-15b's G = 12 at reduced width: 24 query heads over 2 kv
+    heads (the card's tiled kernel runs this in tests/test_torch_cuda.py)."""
+    jc, tc = (dataclasses.replace(b.get_config("starcoder2-15b").reduced(),
+                                  n_heads=24, n_kv_heads=2)
+              for b in (j_base, t_base))
+    assert tc.n_heads // tc.n_kv_heads == 12
+    _greedy_matches_reference(jc, tc)
+
+
+def _greedy_matches_reference(jc, tc):
     B, P, N = 2, 8, 12
     T = P + N + 1
     prompt = np.random.default_rng(0).integers(0, jc.vocab, (B, P))
