@@ -47,7 +47,13 @@ Phases:
                 robust_agg_batched the same with per-scenario gates at
                 S=9 and a tiling shape, and bitwise against S single
                 launches; with the gates off, robust_agg bitwise against
-                uplink_fused. Then the docs/EXPERIMENTS.md fault grid
+                uplink_fused; the kernel's client chunks (C = 1, 3, 5,
+                16, 17, 19, 40 at F = 256, C = 48 and 64 at F =
+                1024: below, at and past a chunk boundary, n <= 2k, and
+                trim k = 1, 2, 3, 6 and 9, each trim list length) with
+                NaN and Inf planted in one client of one packet, batched
+                launches of them bitwise the single ones. Then the
+                docs/EXPERIMENTS.md fault grid
                 (clean, faulted undefended, faulted defended; 40 rounds,
                 N=20, C=12) through SweepEngine with the counts set to 0
                 just before and read just after, holding the reference's
@@ -80,8 +86,10 @@ Phases:
                 and of host-loop rounds
   9. protocol   (runs before 8) packet_mask bitwise vs packet_mask_ref
                 with NaN, +-Inf and -0.0 planted, f32 and bf16, at
-                (36, 256), (4096, 256) and (8, 128), its vmap fold one
-                launch; tra_agg vs tra_agg_ref for every debias mode at
+                (36, 256), (4096, 256) and (8, 128), at an odd F (36,
+                255) and on rows that start one element past an aligned
+                address, its vmap fold one launch; tra_agg vs
+                tra_agg_ref for every debias mode at
                 (10, 36, 256), (16, 1024, 256) and (3, 8, 128), its
                 scenario axis one launch, bitwise S single launches;
                 qfed_reweight's delta bitwise, ssq and h close, its vmap
@@ -852,6 +860,72 @@ def check_robust_plain(agg, ef_out, args, trim_k, per_coord, case):
     return finite_err(agg, r_agg)
 
 
+ROBUST_CHUNK_CASES = ((1, 36, 256, 2), (3, 36, 256, 2), (5, 36, 256, 1),
+                      (16, 36, 256, 2), (17, 36, 256, 2), (17, 36, 256, 0),
+                      (19, 36, 256, 3), (40, 36, 256, 6), (40, 8, 256, 9),
+                      (48, 8, 1024, 2), (64, 8, 1024, 0))
+
+
+def chunk_robust_args(shape, seed, dev, *, per_coord, gates_on, use_ef):
+    """Kernel operands at a client count around the kernel's chunks of
+    16: NaN and Inf planted in one client of one delivered packet."""
+    C, P, F = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((C, P, F), device=dev, generator=g)
+    c = C // 2
+    x[c, 1, 3] = math.nan
+    x[c, 1, F - 1] = math.inf
+    m = (torch.rand((C, P), device=dev, generator=g) > 0.3).float()
+    m[c, 1] = 1.0
+    q, gs, w = (torch.rand((C,), device=dev, generator=g) + 0.5
+                for _ in range(3))
+    ef = torch.randn((C, P, F), device=dev, generator=g) if use_ef else None
+    wd = w if per_coord else w.sum()
+    gate = torch.tensor(float(gates_on), device=dev)
+    return (x, m, q, wd, gate, gate.clone(), ef, gs, (w > 0).float())
+
+
+def check_robust_chunks(dev):
+    """The kernel's client chunks against robust_ref, and two-scenario
+    batched launches of them bitwise the single launches. Returns the
+    number of cases and the largest |agg err|."""
+    n, err = 0, 0.0
+    for (C, P, F, k), gates_on, use_ef in itertools.product(
+            ROBUST_CHUNK_CASES, (False, True), (False, True)):
+        pc = k == 0 and C == 17
+        args = chunk_robust_args((C, P, F), 900 + n, dev, per_coord=pc,
+                                 gates_on=gates_on, use_ef=use_ef)
+        n += 1
+        case = (f"chunks C={C} P={P} F={F} trim_k={k} gates={gates_on} "
+                f"ef={use_ef}")
+        kw = robust_kw(args, k, pc)
+        agg, ef_out = ra.robust_agg_call(*args[:6], **kw)
+        torch.cuda.synchronize()
+        if bool(torch.isfinite(agg).all()) != gates_on:
+            fail(f"robust agg finiteness wrong: {case}")
+        err = max(err, check_robust_plain(agg, ef_out, args, k, pc, case))
+        # a second scenario: the clients reversed, the gates flipped
+        x, m, q, wd, scr, trg, ef, gs, w_pos = args
+        flip = [None if t is None else t.flip(0)
+                for t in (x, m, q, wd if pc else None, ef, gs, w_pos)]
+        second = (*flip[:3], flip[3] if pc else wd, 1.0 - scr, 1.0 - trg,
+                  *flip[4:])
+        two = [None if a is None else torch.stack([a, b])
+               for a, b in zip(args, second)]
+        b_agg, b_ef = ra.robust_agg_batched_call(*two[:6],
+                                                 **robust_kw(two, k, pc))
+        for i in range(2):
+            a, e = ra.robust_agg_call(
+                *(t[i] for t in two[:6]),
+                **robust_kw([None if t is None else t[i] for t in two], k,
+                            pc))
+            if not (same_bits(a, b_agg[i])
+                    and (e is None or same_bits(e, b_ef[i]))):
+                fail(f"robust batched launch differs from single launch "
+                     f"{i}: {case}")
+    return n, err
+
+
 def check_robust_kernels(dev):
     """robust_agg and robust_agg_batched against robust_ref, the batched
     launch against S single launches, and the gates-off kernel against
@@ -914,13 +988,17 @@ def check_robust_kernels(dev):
                 and (u_ef is None or torch.equal(ef_out, u_ef))):
             fail(f"robust_agg with the gates off is not bitwise "
                  f"uplink_fused: shape={shape} mode={mode} ef={use_ef}")
+    n_chunks, chunk_err = check_robust_chunks(dev)
+    err["single"] = max(err["single"], chunk_err)
     print(f"[faults] robust_agg: {n_single} cases match robust_ref (agg "
           f"rtol 1e-6 atol 1e-6, NaN positions equal, EF bitwise), max "
           f"|agg err| {err['single']:.3e}; robust_agg_batched: "
           f"{n_batched} cases with per-scenario gates match robust_ref "
           f"and equal S single launches bitwise, max |agg err| "
           f"{err['batched']:.3e}; gates off: bitwise uplink_fused in "
-          f"{n_off} cases", flush=True)
+          f"{n_off} cases; client chunks: {n_chunks} cases match "
+          f"robust_ref, their two-scenario launches bitwise the single "
+          f"ones", flush=True)
     return err
 
 
@@ -1376,16 +1454,23 @@ def check_packet_mask_kernel(dev):
     """packet_mask bitwise against its plain version on the card, NaN,
     Inf and -0.0 included, and its vmap fold one launch, bitwise the
     single launches. Returns 0.0, the largest difference."""
-    cases = [(PM_SHAPE, torch.float32), (PM_SHAPE, torch.bfloat16),
-             (PM_TILE_SHAPE, torch.float32), ((8, 128), torch.float32),
-             ((8, 128), torch.bfloat16)]
-    for n, (shape, dtype) in enumerate(cases):
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (shape, dtype, rows one element past an aligned address)
+    cases = [(PM_SHAPE, f32, False), (PM_SHAPE, bf16, False),
+             (PM_TILE_SHAPE, f32, False), ((8, 128), f32, False),
+             ((8, 128), bf16, False), ((36, 255), f32, False),
+             ((36, 255), bf16, False), (PM_SHAPE, f32, True),
+             (PM_SHAPE, bf16, True)]
+    for n, (shape, dtype, offset) in enumerate(cases):
         x, m = planted_rows(shape, n, dev, dtype)
+        if offset:                      # the scalar path
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+            x = buf[1:].view(shape).copy_(x)
         out = pm.packet_mask_call(x, m)
         torch.cuda.synchronize()
         if not torch.equal(bits(out), bits(packet_mask_ref(x, m))):
             fail(f"packet_mask differs from packet_mask_ref at {shape} "
-                 f"{dtype}")
+                 f"{dtype} offset={offset}")
         if not (bool(torch.signbit(out[0, 3])) and float(out[0, 3]) == 0.0):
             fail("packet_mask lost the sign of -0.0 * 0")
     B, D = 10, PROTOCOL_D
@@ -1403,8 +1488,10 @@ def check_packet_mask_kernel(dev):
         if not torch.equal(folded[i], pm_ops.apply_packet_mask(vec[i],
                                                                mask[i])):
             fail(f"packet_mask vmap fold differs from single launch {i}")
+    labels = [(s, str(d)[6:] + (" offset" if o else ""))
+              for s, d, o in cases]
     print(f"[protocol] packet_mask: bitwise equal to packet_mask_ref at "
-          f"{[(s, str(d)[6:]) for s, d in cases]} with NaN, +-Inf and -0.0 "
+          f"{labels} with NaN, +-Inf and -0.0 "
           f"planted; the vmap fold of B={B} uploads of D={D} is one "
           f"launch, bitwise B single launches", flush=True)
     return 0.0

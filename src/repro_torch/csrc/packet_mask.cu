@@ -24,7 +24,11 @@
 // tiles in VMEM; in f32 with F a multiple of 4, one thread per float4 (a
 // 16-byte load and store, neighbouring threads on neighbouring
 // addresses). The packet index is the element's row, i / F. A vmap over a
-// cohort folds the batch into the rows (R = B * P): one launch.
+// cohort folds the batch into the rows (R = B * P): one launch. At the
+// path's shape (one upload, P = 36, F = 256) the kernel runs at the launch
+// floor, about a microsecond, so the host side sets a call's time: the
+// launch switches the current device only when it differs, and the
+// binding checks in one pass and takes the raw stream handle.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,8 +80,13 @@ extern "C" {
 int packet_mask_launch(const void* x, const void* m, void* out, long long R,
                        int F, int is_bf16, int vec4, int device,
                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
+  if (current != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int threads = 256;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mf = static_cast<const float*>(m);

@@ -29,184 +29,299 @@
 // What bounds it: bytes. At the fault recipe's shape (C=12, P=36, F=256,
 // f32, no EF) the call must read x (442,368 B), m, q, g, w_pos and the gates
 // and write agg (36,864 B): about 0.48 MB, or 0.14 us at the H100's
-// 3.35 TB/s. A launch costs microseconds, so there the kernel is
-// launch-bound. The recipe's 9-cell grid moves about 4.3 MB (1.3 us); the
-// tiling shape (64, 1024, 256) with EF about 202 MB (60 us). The trim's
-// compares, 2k passes over C per output, are far below the fp32 rate.
+// 3.35 TB/s. A launch costs microseconds, so there the kernel is bound by
+// latency: the dependent trips to memory a CTA makes, the instructions it
+// fetches once each, and each thread's serial work over the clients. The
+// recipe's 9-cell grid moves about 4.3 MB (1.3 us); the tiling shape
+// (64, 1024, 256) with EF about 202 MB (60 us), where the loads in flight
+// per SM set the rate. The trim's compares, about 4K per client and
+// output, are far below the fp32 rate.
 //
 // Design: one CTA per (packet row, scenario), one thread per float of the
-// row (blockDim = F), and a loop over all C clients in index order inside
-// the CTA, as in uplink_fused.cu. The screen of a packet is an AND over the
-// CTA's row: __syncthreads_and. The numerator and the per_coord denominator
-// accumulate in registers with the uplink kernel's expressions, so with
-// every gate off the aggregate is bitwise uplink_fused's. There is no branch
-// on m == 0: NaN * 0 = NaN, as on the TPU, so an undefended NaN upload
+// row (blockDim = F). The clients go in chunks of `chunk` (kChunk, or C if
+// fewer). For a chunk, each thread first issues an asynchronous copy
+// (cp.async) of each of its clients' floats, x and ef, into shared memory,
+// and the first threads copy
+// the chunk's per-client scalars (m, q, w, g, w_pos) the same way; then it
+// waits for its own copies. So the chunk's loads are all in flight at once,
+// from a loop that stays rolled: a CTA of this kernel runs for a few
+// microseconds and fetches each instruction about once, so code that
+// unrolls 16 clients costs more than it saves (probed on the H100). A
+// thread reads only its own column of the staged rows, so they need no
+// barrier. The screen of a packet is an AND over the CTA's row: each warp
+// ORs its per-client "not finite" bits with one __reduce_or_sync and writes
+// one word (a bit per client) to shared memory; after ONE __syncthreads
+// every thread ORs the words of all warps. The chunk's words and scalars are
+// double-buffered, so that one barrier per chunk suffices: a thread writing
+// chunk i+2's buffer has passed chunk i+1's barrier, which no thread reaches
+// before it is done reading chunk i's. The recipe's C = 12 clients take one
+// barrier, not one a client, each waiting on that client's load.
+//
+// The numerator and the per_coord denominator then accumulate in registers
+// client by client in index order, with the uplink kernel's expressions, so
+// with every gate off the aggregate is bitwise uplink_fused's. There is no
+// branch on m == 0: NaN * 0 = NaN, as on the TPU, so an undefended NaN upload
 // poisons the aggregate as it does in the reference.
 //
-// The trimmed mean stages each thread's column y[c] = x_san * g[c] in shared
-// memory (C*F*4 bytes; a thread reads only its own column, so no barrier is
-// needed for it). The reference's pass i takes the minimum (maximum) and
-// retires its first occurrence, and a retired slot then reads TRIM_BIG
-// (-TRIM_BIG). Retiring first occurrences extracts in (value, index) order,
-// so pass i here takes the successor of pass i-1's (value, index) in that
-// order, capped at TRIM_BIG from the second pass on, where a retired slot is
-// a candidate. That needs no per-client state, whatever C is. Compares are
-// plain < / > (fminf / fmaxf would drop a NaN). bot and top sum in
-// extraction order; the plain version sums a sorted slice, so the two agree
-// to rounding, not bitwise.
+// The trimmed mean runs in the same loop over the clients, in index order,
+// in registers: per coordinate it sums n and total and keeps the K smallest
+// and the K largest of the clients' values lo(c) = valid ? y : TRIM_BIG and
+// hi(c) = valid ? y : -TRIM_BIG (y = x_san * g[c]), each as a sorted list
+// into which every client's value is inserted by compare-and-select, no
+// branch on the data. K, a template parameter, is trim_k rounded up to a
+// power of two (at most 16); slots past trim_k go unread. The reference's
+// pass i takes the minimum (maximum), retires its first occurrence, and a
+// retired slot then reads TRIM_BIG (-TRIM_BIG): so pass i takes the i-th
+// value of the (value, index) order, which is slot i of the list, and any
+// value from the second pass on that is not below TRIM_BIG (above
+// -TRIM_BIG), or missing, counts as TRIM_BIG (-TRIM_BIG). A NaN is never
+// taken (its compares are false), as in the reference; a valid NaN makes
+// total, and so the result, NaN in both. bot and top sum
+// the slots in pass order; the plain version sums a sorted slice, so the
+// two agree to rounding, not bitwise. This takes the reference's k passes
+// over C per coordinate down to one, with no shared-memory column and no
+// barrier: k passes over a staged column cost 2.4 of 5.1 us at C = 12,
+// k = 2 on the H100, the one pass about 0.8.
 //
 // Scenario batching: blockIdx.y is the scenario; each CTA offsets to its
 // scenario and does a single CTA's work in the same order, so one batched
 // launch is bitwise S single launches. No float atomics anywhere: every run
-// gives the same bits. Beyond that the design does nothing about the launch
-// cost yet: vectorised loads and more CTAs than P are later work.
+// gives the same bits.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kTrimBig = 3.0e38f;
+// The most clients per chunk (one bit each in a warp's screen word). The
+// binding's CHUNK follows it.
+constexpr int kChunk = 16;
+constexpr int kMaxWarps = 32;
+constexpr int kMaxDevices = 64;
 
-__global__ void robust_agg_kernel(
+// Copies 4 bytes from device memory to shared memory without waiting.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Waits until this thread's copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K: the trimmed mean's list length (0: no trim; else trim_k <= K).
+template <int K>
+__global__ void __launch_bounds__(1024) robust_agg_kernel(
     const float* __restrict__ x, const float* __restrict__ ef,
     const float* __restrict__ m, const float* __restrict__ q,
     const float* __restrict__ g, const float* __restrict__ w_pos,
     const float* __restrict__ w_or_den, const float* __restrict__ screen,
     const float* __restrict__ trim_gate, float* __restrict__ agg,
     float* __restrict__ ef_out, int C, int P, int F, int per_coord,
-    int trim_k, float eps) {
+    int trim_k, float eps, int chunk) {
+  // the chunk's x rows (chunk, F), then its ef rows (chunk, F) with EF
   extern __shared__ float smem[];
-  float* vld = smem;     // (C,) trim validity of each client's packet p
-  float* ys = smem + C;  // (C, F) trim estimates; column f is thread f's
+  // per chunk, double-buffered: each warp's "not finite" bits (bit j for
+  // client c0 + j) and the chunk's per-client scalars
+  __shared__ unsigned s_bad[2][kMaxWarps];
+  __shared__ float s_m[2][kChunk], s_q[2][kChunk], s_w[2][kChunk];
+  __shared__ float s_g[2][kChunk], s_wp[2][kChunk];
   const int p = blockIdx.x;
   const int f = threadIdx.x;
+  const int lane = f & 31;
+  const int warp = f >> 5;
+  const int n_warps = blockDim.x >> 5;
   const size_t sc = blockIdx.y;  // scenario
-  x += sc * C * P * F;
+  const size_t plane = (size_t)P * F;  // one client's floats
+  x += sc * C * plane;
   if (ef != nullptr) {
-    ef += sc * C * P * F;
-    ef_out += sc * C * P * F;
+    ef += sc * C * plane;
+    ef_out += sc * C * plane;
   }
   m += sc * C * P;
   q += sc * C;
-  if (trim_k > 0) {
+  if constexpr (K > 0) {
     g += sc * C;
     w_pos += sc * C;
   }
   w_or_den += per_coord ? sc * C : sc;
-  agg += sc * P * F;
+  agg += sc * plane;
+  // the gates and the ready denominator load first, so that their trips
+  // to memory overlap the chunk's instead of following the last one
   const bool scr = screen[sc] > 0.5f;
+  const bool trg = K > 0 && trim_gate[sc] > 0.5f;
+  const float den_ready = per_coord ? 0.f : w_or_den[0];
+  const size_t col = (size_t)p * F + f;  // this thread's float in a plane
+  float* xr = smem + f;                  // row j of the chunk: xr[j * F]
+  float* er = smem + (size_t)chunk * F + f;
 
   float acc = 0.f;
   float den = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float mc = m[(size_t)c * P + p];
-    const size_t i = ((size_t)c * P + p) * F + f;
-    float xe = x[i];
-    if (ef != nullptr) xe += ef[i];
-    const bool fin = isfinite(xe);
-    const bool ok = __syncthreads_and(fin);
-    const float me = scr ? mc * (ok ? 1.f : 0.f) : mc;
-    const float xs = (scr && !fin) ? 0.f : xe;
-    const float wm = me * q[c];
-    if (per_coord) den += me * w_or_den[c];
-    acc += xs * wm;
-    if (ef != nullptr) ef_out[i] = xs * (1.f - mc);
-    if (trim_k > 0) {
-      ys[(size_t)c * F + f] = xs * g[c];
-      if (f == 0) vld[c] = me * w_pos[c];
+  // the trimmed mean's state: n, total, the K smallest lo and K largest hi
+  // values
+  constexpr int KS = K > 0 ? K : 1;
+  float n = 0.f, total = 0.f, lo[KS], hi[KS];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    lo[i] = INFINITY;
+    hi[i] = -INFINITY;
+  }
+  for (int c0 = 0, b = 0; c0 < C; c0 += chunk, b ^= 1) {
+    const int nc = C - c0 < chunk ? C - c0 : chunk;
+    const float* xg = x + (size_t)c0 * plane + col;
+    for (int j = 0; j < nc; ++j) cp_async4(xr + (size_t)j * F, xg + j * plane);
+    if (ef != nullptr) {
+      const float* eg = ef + (size_t)c0 * plane + col;
+      for (int j = 0; j < nc; ++j)
+        cp_async4(er + (size_t)j * F, eg + j * plane);
+    }
+    if (f < nc) {
+      const int c = c0 + f;
+      cp_async4(&s_m[b][f], m + (size_t)c * P + p);
+      cp_async4(&s_q[b][f], q + c);
+      if (per_coord) cp_async4(&s_w[b][f], w_or_den + c);
+      if constexpr (K > 0) {
+        cp_async4(&s_g[b][f], g + c);
+        cp_async4(&s_wp[b][f], w_pos + c);
+      }
+    }
+    cp_async_wait_all();
+    unsigned bad = 0u;
+    for (int j = 0; j < nc; ++j) {
+      float xe = xr[(size_t)j * F];
+      if (ef != nullptr) xe += er[(size_t)j * F];
+      if (!isfinite(xe)) bad |= 1u << j;
+    }
+    bad = __reduce_or_sync(0xffffffffu, bad);
+    if (lane == 0) s_bad[b][warp] = bad;
+    __syncthreads();  // the chunk's one barrier
+    bad = __reduce_or_sync(0xffffffffu, lane < n_warps ? s_bad[b][lane] : 0u);
+
+    for (int j = 0; j < nc; ++j) {
+      const int c = c0 + j;
+      float xe = xr[(size_t)j * F];
+      if (ef != nullptr) xe += er[(size_t)j * F];
+      const float mc = s_m[b][j];
+      const bool fin = isfinite(xe);
+      const bool ok = !((bad >> j) & 1u);
+      const float me = scr ? mc * (ok ? 1.f : 0.f) : mc;
+      const float xs = (scr && !fin) ? 0.f : xe;
+      const float wm = me * s_q[b][j];
+      if (per_coord) den += me * s_w[b][j];
+      acc += xs * wm;
+      if (ef != nullptr) ef_out[(size_t)c * plane + col] = xs * (1.f - mc);
+      if constexpr (K > 0) {
+        const float y = xs * s_g[b][j];
+        const float v = me * s_wp[b][j];
+        n += v;
+        total += y * v;
+        const float l = v > 0.f ? y : kTrimBig;
+        const float h = v > 0.f ? y : -kTrimBig;
+        // insert into the sorted lists, by selects (nested, the compiler
+        // makes them branches, which diverge); a NaN moves nothing
+#pragma unroll
+        for (int i = KS - 1; i > 0; --i) {
+          const float lt = l < lo[i] ? l : lo[i];
+          const float ht = h > hi[i] ? h : hi[i];
+          lo[i] = l < lo[i - 1] ? lo[i - 1] : lt;
+          hi[i] = h > hi[i - 1] ? hi[i - 1] : ht;
+        }
+        lo[0] = l < lo[0] ? l : lo[0];
+        hi[0] = h > hi[0] ? h : hi[0];
+      }
     }
   }
   // max(den, eps) that keeps a NaN, as torch.clamp does
-  const float d = per_coord ? (den < eps ? eps : den) : w_or_den[0];
+  const float d = per_coord ? (den < eps ? eps : den) : den_ready;
   float out = acc / d;
 
-  if (trim_k > 0) {
-    __syncthreads();  // vld was written by thread 0
-    float n = 0.f;
-    float total = 0.f;
-    for (int c = 0; c < C; ++c) {
-      n += vld[c];
-      total += ys[(size_t)c * F + f] * vld[c];
-    }
+  if constexpr (K > 0) {
+    // pass i's value: slot i; from pass 1 on capped at +-TRIM_BIG, which a
+    // missing slot (+-inf) reads too. Where a valid value is NaN the
+    // reference takes it in no pass, but total is NaN, and so is the
+    // result whatever the slots hold.
     float bot = 0.f;
     float top = 0.f;
-    // the last extracted (value, client) of each side
-    float lo_v = -INFINITY, hi_v = INFINITY;
-    int lo_c = -1, hi_c = -1;
-    for (int pass = 0; pass < trim_k; ++pass) {
-      float bv = kTrimBig;
-      int bc = -1;
-      for (int c = 0; c < C; ++c) {
-        const float v = vld[c] > 0.f ? ys[(size_t)c * F + f] : kTrimBig;
-        const bool after = v > lo_v || (v == lo_v && c > lo_c);
-        if (after && (bc < 0 || v < bv)) {
-          bv = v;
-          bc = c;
-        }
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      if (i < trim_k) {
+        bot += i == 0 ? lo[0] : (lo[i] < kTrimBig ? lo[i] : kTrimBig);
+        top += i == 0 ? hi[0] : (hi[i] > -kTrimBig ? hi[i] : -kTrimBig);
       }
-      if (bc >= 0) {
-        lo_v = bv;
-        lo_c = bc;
-      }
-      bot += (pass > 0 && !(bv < kTrimBig)) ? kTrimBig : bv;
-
-      bv = -kTrimBig;
-      bc = -1;
-      for (int c = 0; c < C; ++c) {
-        const float v = vld[c] > 0.f ? ys[(size_t)c * F + f] : -kTrimBig;
-        const bool after = v < hi_v || (v == hi_v && c > hi_c);
-        if (after && (bc < 0 || v > bv)) {
-          bv = v;
-          bc = c;
-        }
-      }
-      if (bc >= 0) {
-        hi_v = bv;
-        hi_c = bc;
-      }
-      top += (pass > 0 && !(bv > -kTrimBig)) ? -kTrimBig : bv;
     }
     const float two_k = 2.f * (float)trim_k;
     const float cnt = n - two_k < 1.f ? 1.f : n - two_k;
     const float trimmed = n > two_k ? (total - top - bot) / cnt
                                     : total / (n < 1.f ? 1.f : n);
-    if (trim_gate[sc] > 0.5f) out = trimmed;
+    if (trg) out = trimmed;
   }
-  agg[(size_t)p * F + f] = out;
+  agg[col] = out;
 }
+
+// The dynamic shared memory each instance (slots 0, 1, 2, 4, 8, 16) was
+// opted into on each device, so that cudaFuncSetAttribute runs once per
+// process, device, instance and larger size.
+int g_smem_opt[kMaxDevices][6];
+
 
 }  // namespace
 
 extern "C" {
 
 // Launches the robust aggregation of S scenarios on `stream`, one CTA per
-// (packet row, scenario) and one thread per float of the row. ef/ef_out are
-// both null or both set; g and w_pos are read only when trim_k > 0. Returns
-// the first CUDA error, or cudaGetLastError() after the launch.
+// (packet row, scenario) and one thread per float of the row, the clients in
+// chunks of `chunk` (1..kChunk), with `smem` bytes of dynamic shared memory
+// (chunk * F floats, twice that with EF) and the trim's lists `slots` long
+// (0 without the trim, else 1, 2, 4, 8 or 16 >= trim_k): the binding's
+// plan. ef/ef_out are both null or both set; g and w_pos are read only when
+// trim_k > 0. Returns the first CUDA error, or cudaGetLastError() after the
+// launch.
 int robust_agg_launch(const void* x, const void* ef, const void* m,
                       const void* q, const void* g, const void* w_pos,
                       const void* w_or_den, const void* screen,
                       const void* trim_gate, void* agg, void* ef_out, int S,
                       int C, int P, int F, int per_coord, int trim_k,
-                      float eps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                      float eps, int chunk, int slots, int smem,
+                      int device, void* stream) {
+  decltype(&robust_agg_kernel<0>) kernel;
+  int row;  // the instance's row in g_smem_opt
+  switch (slots) {
+    case 0: kernel = robust_agg_kernel<0>; row = 0; break;
+    case 1: kernel = robust_agg_kernel<1>; row = 1; break;
+    case 2: kernel = robust_agg_kernel<2>; row = 2; break;
+    case 4: kernel = robust_agg_kernel<4>; row = 3; break;
+    case 8: kernel = robust_agg_kernel<8>; row = 4; break;
+    case 16: kernel = robust_agg_kernel<16>; row = 5; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if ((slots == 0) != (trim_k == 0) || trim_k > slots)
+    return (int)cudaErrorInvalidValue;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem =
-      trim_k > 0 ? (size_t)C * (size_t)(F + 1) * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(robust_agg_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  if (current != device) {
+    err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
   }
+  int* opted = device < kMaxDevices ? &g_smem_opt[device][row] : nullptr;
+  if (smem > 48 * 1024 && (opted == nullptr || smem > *opted)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    if (opted != nullptr) *opted = smem;
+  }
   const dim3 grid(P, S);
-  robust_agg_kernel<<<grid, F, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, F, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(ef),
       static_cast<const float*>(m), static_cast<const float*>(q),
       static_cast<const float*>(g), static_cast<const float*>(w_pos),
       static_cast<const float*>(w_or_den), static_cast<const float*>(screen),
       static_cast<const float*>(trim_gate), static_cast<float*>(agg),
-      static_cast<float*>(ef_out), C, P, F, per_coord, trim_k, eps);
+      static_cast<float*>(ef_out), C, P, F, per_coord, trim_k, eps, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -7,11 +7,20 @@ choice between the kernel and its plain version (``ref.py``) is made by
 the ``repro_torch::robust_agg`` ops in ``ops.py``, by device alone.
 ``LAUNCHES`` and ``BATCHED_LAUNCHES`` count the launches of this
 process through each entry.
+
+The binding's contract, in order: the first statement of each entry
+refuses any operand that is not a CUDA tensor, with a ``ValueError``
+that names CUDA, before a counter moves and before the library is
+built or loaded; then ``plan`` refuses a shape the kernel cannot take;
+then one pass checks device, dtype, shape and contiguity of every
+operand, and only when it finds a fault does ``_check`` run per operand
+to name it. A failed launch raises ``RuntimeError``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,7 +30,36 @@ from repro_torch.kernels.common import DENOM_EPS
 LAUNCHES = 0
 BATCHED_LAUNCHES = 0
 
-_MAX_SMEM = 232448          # dynamic shared memory a CTA may opt into
+CHUNK = 16                  # the most clients a chunk (kChunk in the .cu)
+TRIM_SLOTS = (1, 2, 4, 8, 16)   # the kernel's trim list lengths (its K)
+_OPERANDS = ("x", "m", "q", "w_or_den", "screen", "trim_gate", "ef", "g",
+             "w_pos")
+
+
+class Plan(NamedTuple):
+    """Launch geometry of one call, beside a CTA per (packet row,
+    scenario) of one thread per float."""
+    chunk: int      # clients whose loads are in flight together
+    slots: int      # the trim's list length: 0, or trim_k rounded up
+    smem: int       # dynamic shared memory, bytes: the chunk's rows
+
+
+@functools.lru_cache(maxsize=None)
+def plan(S: int, C: int, P: int, F: int, trim_k: int, ef: bool) -> Plan:
+    """The kernel's geometry for S scenarios of (C, P, F) uploads, with
+    or without EF; raises ``ValueError`` on what it cannot take."""
+    if F % 32 or not 32 <= F <= 1024 or min(S, C, P) < 1:
+        raise ValueError(f"unsupported packet shape S={S}, C={C}, P={P}, "
+                         f"F={F}: S, C, P > 0 and F a multiple of 32 in "
+                         f"[32, 1024]")
+    if S > 65535:
+        raise ValueError(f"at most 65535 scenarios in one launch, not {S}")
+    if not 0 <= trim_k <= TRIM_SLOTS[-1]:
+        raise ValueError(f"trim_k must be in [0, {TRIM_SLOTS[-1]}], not "
+                         f"{trim_k}")
+    slots = next(k for k in TRIM_SLOTS if k >= trim_k) if trim_k else 0
+    chunk = min(CHUNK, C)
+    return Plan(chunk, slots, chunk * F * 4 * (2 if ef else 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,16 +68,26 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.robust_agg_launch.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+        i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, i32, i32,
+        ptr]
     lib.robust_agg_launch.restype = i32
     lib.robust_agg_error_string.argtypes = [i32]
     lib.robust_agg_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _refuse(entry, operands):
+    """Raise the CPU refusal, naming the first operand off the card."""
+    name, t = next((n, t) for n, t in zip(_OPERANDS, operands)
+                   if t is not None and not t.is_cuda)
+    raise ValueError(f"{entry} runs on CUDA tensors only, and {name} lies "
+                     f"on {t.device}; the plain version is ref.robust_ref")
+
+
 def _check(name, t, shape, device):
-    if not t.is_cuda or t.device != device:
-        raise ValueError(f"{name} must lie on {device}, not {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, not "
+                         f"on {t.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, not {t.dtype}")
     if tuple(t.shape) != shape:
@@ -49,67 +97,62 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos, trim_k,
-            per_coord, *, batched):
-    """Check the (S, C, P, F) operands and launch the kernel once,
+def _fits(t, shape, index):
+    return (t.get_device() == index and t.dtype is torch.float32
+            and t.shape == shape and t.is_contiguous())
+
+
+def _launch(lead, x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos,
+            trim_k, per_coord):
+    """Check the operands of S = ``lead[0]`` scenarios (one, with no
+    scenario axis, when ``lead`` is empty) and launch the kernel once,
     counted under the entry that asked for it."""
     global LAUNCHES, BATCHED_LAUNCHES
-    S, C, P, F = x.shape
-    dev = x.device
-    if F % 32 or not 32 <= F <= 1024 or P == 0 or S == 0 or C == 0:
-        raise ValueError(f"unsupported packet shape S={S}, C={C}, P={P}, "
-                         f"F={F}: S, C, P > 0 and F a multiple of 32 in "
-                         f"[32, 1024]")
-    if S > 65535:
-        raise ValueError(f"at most 65535 scenarios in one launch, not {S}")
-    if trim_k < 0:
-        raise ValueError(f"trim_k must be >= 0, not {trim_k}")
-    smem = C * (F + 1) * 4 if trim_k > 0 else 0
-    if smem > _MAX_SMEM:
-        raise ValueError(f"the trimmed mean stages C*(F+1) floats in shared "
-                         f"memory: C={C}, F={F} needs {smem} B, over "
-                         f"{_MAX_SMEM}")
-    _check("x", x, (S, C, P, F), dev)
-    if ef is not None:
-        _check("ef", ef, (S, C, P, F), dev)
-    _check("m", m, (S, C, P), dev)
-    _check("q", q, (S, C), dev)
-    _check("w_or_den", w_or_den, (S, C) if per_coord else (S,), dev)
-    _check("screen", screen, (S,), dev)
-    _check("trim_gate", trim_gate, (S,), dev)
-    if trim_k > 0:
-        if g is None or w_pos is None:
-            raise ValueError("trim_k > 0 needs g and w_pos")
-        _check("g", g, (S, C), dev)
-        _check("w_pos", w_pos, (S, C), dev)
-
-    agg = torch.empty((S, P, F), dtype=torch.float32, device=dev)
-    ef_out = torch.empty_like(x) if ef is not None else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    C, P, F = x.shape[-3:]
+    S = lead[0] if lead else 1
+    pl = plan(S, C, P, F, trim_k, ef is not None)
+    trim = trim_k > 0
+    if trim and (g is None or w_pos is None):
+        raise ValueError("trim_k > 0 needs g and w_pos")
+    index = x.get_device()
+    xs, ms, cs = (*lead, C, P, F), (*lead, C, P), (*lead, C)
+    ws = cs if per_coord else lead
+    # one pass over the common case; _check names the first fault
+    if not (_fits(x, xs, index) and _fits(m, ms, index)
+            and _fits(q, cs, index) and _fits(w_or_den, ws, index)
+            and _fits(screen, lead, index) and _fits(trim_gate, lead, index)
+            and (ef is None or _fits(ef, xs, index))
+            and (not trim or (_fits(g, cs, index)
+                              and _fits(w_pos, cs, index)))):
+        named = [("x", x, xs), ("ef", ef, xs), ("m", m, ms), ("q", q, cs),
+                 ("w_or_den", w_or_den, ws), ("screen", screen, lead),
+                 ("trim_gate", trim_gate, lead)]
+        if trim:
+            named += [("g", g, cs), ("w_pos", w_pos, cs)]
+        for name, t, shape in named:
+            if t is not None:
+                _check(name, t, shape, x.device)
+    agg = x.new_empty((*lead, P, F))
+    ef_out = None if ef is None else torch.empty_like(ef)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if batched:
+    # the current stream's handle, without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if lead:
         BATCHED_LAUNCHES += 1
     else:
         LAUNCHES += 1
     err = lib.robust_agg_launch(
-        ptr(x), ptr(ef), ptr(m), ptr(q), ptr(g if trim_k > 0 else None),
-        ptr(w_pos if trim_k > 0 else None), ptr(w_or_den), ptr(screen),
-        ptr(trim_gate), ptr(agg), ptr(ef_out), S, C, P, F, int(per_coord),
-        int(trim_k), DENOM_EPS, dev.index, stream)
+        x.data_ptr(), None if ef is None else ef.data_ptr(), m.data_ptr(),
+        q.data_ptr(), g.data_ptr() if trim else None,
+        w_pos.data_ptr() if trim else None, w_or_den.data_ptr(),
+        screen.data_ptr(), trim_gate.data_ptr(), agg.data_ptr(),
+        None if ef_out is None else ef_out.data_ptr(), S, C, P, F,
+        int(per_coord), trim_k, DENOM_EPS, pl.chunk, pl.slots, pl.smem,
+        index, stream)
     if err:
         raise RuntimeError("robust_agg kernel launch failed: "
                            + lib.robust_agg_error_string(err).decode())
     return agg, ef_out
-
-
-def _require_cuda(x, name):
-    if not x.is_cuda:
-        raise ValueError(f"{name} runs on CUDA tensors only; the plain "
-                         f"version is ref.robust_ref")
 
 
 def robust_agg_call(x, m, q, w_or_den, screen, trim_gate, *, ef=None,
@@ -126,18 +169,16 @@ def robust_agg_call(x, m, q, w_or_den, screen, trim_gate, *, ef=None,
 
     Returns (agg (P, F) f32, ef_out (C, P, F) f32 | None).
     """
-    _require_cuda(x, "robust_agg_call")
+    if not (x.is_cuda and m.is_cuda and q.is_cuda and w_or_den.is_cuda
+            and screen.is_cuda and trim_gate.is_cuda
+            and (ef is None or ef.is_cuda) and (g is None or g.is_cuda)
+            and (w_pos is None or w_pos.is_cuda)):
+        _refuse("robust_agg_call",
+                (x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos))
     if x.dim() != 3:
         raise ValueError(f"x must be (C, P, F), not {tuple(x.shape)}")
-
-    def lead(t):
-        return None if t is None else t[None]
-
-    agg, ef_out = _launch(
-        x[None], m[None], q[None], w_or_den[None], screen[None],
-        trim_gate[None], lead(ef), lead(g), lead(w_pos), trim_k, per_coord,
-        batched=False)
-    return agg[0], None if ef_out is None else ef_out[0]
+    return _launch((), x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos,
+                   trim_k, per_coord)
 
 
 def robust_agg_batched_call(x, m, q, w_or_den, screen, trim_gate, *,
@@ -150,8 +191,13 @@ def robust_agg_batched_call(x, m, q, w_or_den, screen, trim_gate, *,
     Returns (agg (S, P, F) f32, ef_out (S, C, P, F) | None), bitwise
     equal to S single calls.
     """
-    _require_cuda(x, "robust_agg_batched_call")
+    if not (x.is_cuda and m.is_cuda and q.is_cuda and w_or_den.is_cuda
+            and screen.is_cuda and trim_gate.is_cuda
+            and (ef is None or ef.is_cuda) and (g is None or g.is_cuda)
+            and (w_pos is None or w_pos.is_cuda)):
+        _refuse("robust_agg_batched_call",
+                (x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos))
     if x.dim() != 4:
         raise ValueError(f"x must be (S, C, P, F), not {tuple(x.shape)}")
-    return _launch(x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos,
-                   trim_k, per_coord, batched=True)
+    return _launch((x.shape[0],), x, m, q, w_or_den, screen, trim_gate, ef, g,
+                   w_pos, trim_k, per_coord)

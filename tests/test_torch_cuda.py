@@ -329,6 +329,119 @@ def test_cuda_robust_gates_off_is_the_uplink_kernel(dev, mode):
     assert torch.equal(agg, u_agg) and torch.equal(ef_out, u_ef)
 
 
+def _robust_edge(C_, P_, F_, seed, dev, *, per_coord, gates):
+    """Robust-kernel operands at a client count around the kernel's
+    chunks: NaN and Inf planted in one client of one packet."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(C_, P_, F_)).astype(np.float32)
+    c = C_ // 2
+    x[c, 1, 3] = np.nan
+    x[c, 1, F_ - 1] = np.inf
+    w = (rng.random(C_) + 0.1).astype(np.float32)
+    t = {k: torch.tensor(v, device=dev) for k, v in dict(
+        x=x, ef=rng.normal(size=(C_, P_, F_)).astype(np.float32),
+        m=(rng.random((C_, P_)) > 0.3).astype(np.float32),
+        q=(rng.random(C_) + 0.5).astype(np.float32),
+        g=(rng.random(C_) + 0.5).astype(np.float32), w=w).items()}
+    t["m"][c, 1] = 1.0                  # the planted packet is delivered
+    t["w_pos"] = (t["w"] > 0).float()
+    t["wd"] = t["w"] if per_coord else torch.clamp(t["w"].sum(),
+                                                   min=DENOM_EPS)
+    t["scr"], t["trg"] = (torch.tensor(v, device=dev) for v in gates)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_,P_,F_,trim_k", [
+    (1, 4, 256, 2), (3, 4, 256, 2), (5, 4, 256, 1), (16, 36, 256, 2),
+    (17, 36, 256, 2), (17, 36, 256, 0), (19, 4, 256, 3), (14, 4, 256, 6),
+    (40, 4, 256, 9), (64, 4, 1024, 0), (48, 4, 1024, 2)])
+@pytest.mark.parametrize("gates", [(0.0, 0.0), (1.0, 1.0)])
+@pytest.mark.parametrize("use_ef", [False, True])
+def test_cuda_robust_kernel_chunks_match_plain(dev, C_, P_, F_, trim_k,
+                                               gates, use_ef):
+    """Client counts below, at and past a chunk boundary, the tiling
+    width, n <= 2k (C = 1 and 3 with k = 2, where the trimmed mean falls
+    back to the masked mean) and k for each of the kernel's trim list
+    lengths (1, 2, 3, 6, 9): agg within rtol 1e-6 / atol 1e-6 of the
+    plain version with equal NaN positions, EF bitwise; the batched
+    launch of two scenarios bitwise the single launches."""
+    per_coord = trim_k == 0 and C_ == 17
+    t = _robust_edge(C_, P_, F_, C_ + F_, dev, per_coord=per_coord,
+                     gates=gates)
+    kw = dict(ef=t["ef"] if use_ef else None, g=t["g"], w_pos=t["w_pos"],
+              trim_k=trim_k, per_coord=per_coord)
+    agg, ef_out = t_ra.robust_agg_call(t["x"], t["m"], t["q"], t["wd"],
+                                       t["scr"], t["trg"], **kw)
+    r_agg, r_ef, _ = robust_ref(t["x"], t["m"], t["q"], t["wd"],
+                                screen=t["scr"], trim_gate=t["trg"], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(agg, r_agg, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+    assert bool(torch.isfinite(agg).all()) == (gates[0] == 1.0)
+    if use_ef:
+        assert _same_bits(ef_out, r_ef)
+
+    # a second scenario: the clients in reverse order, the gates flipped
+    def two(v):
+        return torch.stack([v, v.flip(0) if v.dim() else 1.0 - v])
+    kw2 = {k: two(v) if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()}
+    ops = [two(t[k]) for k in ("x", "m", "q")] + [
+        torch.stack([t["wd"], t["wd"].flip(0) if per_coord else t["wd"]]),
+        two(t["scr"]), two(t["trg"])]
+    b_agg, b_ef = t_ra.robust_agg_batched_call(*ops, **kw2)
+    for i in range(2):
+        a, e = t_ra.robust_agg_call(
+            *(o[i] for o in ops),
+            **{k: v[i] if isinstance(v, torch.Tensor) else v
+               for k, v in kw2.items()})
+        assert _same_bits(a, b_agg[i])
+        if use_ef:
+            assert _same_bits(e, b_ef[i])
+
+
+def _robust_operands(dev):
+    t = _robust_edge(5, 3, 64, 3, dev, per_coord=False, gates=(1.0, 1.0))
+    return dict(x=t["x"], m=t["m"], q=t["q"], w_or_den=t["wd"],
+                screen=t["scr"], trim_gate=t["trg"], ef=t["ef"], g=t["g"],
+                w_pos=t["w_pos"])
+
+
+def _robust_call(ops):
+    return t_ra.robust_agg_call(
+        ops["x"], ops["m"], ops["q"], ops["w_or_den"], ops["screen"],
+        ops["trim_gate"], ef=ops["ef"], g=ops["g"], w_pos=ops["w_pos"],
+        trim_k=2, per_coord=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["x", "m", "q", "w_or_den", "screen",
+                                  "trim_gate", "ef", "g", "w_pos"])
+def test_cuda_robust_binding_names_each_fault(dev, name):
+    """The one-pass check falls back to the named per-operand check: a
+    CPU tensor raises the CUDA refusal, a wrong dtype TypeError, a wrong
+    shape or a strided view ValueError, each naming the operand, and no
+    launch is counted."""
+    ops = _robust_operands(dev)
+    good = ops[name]
+    before = (t_ra.LAUNCHES, t_ra.BATCHED_LAUNCHES)
+    faults = [(good.cpu(), ValueError, f"CUDA tensors only, and {name} "),
+              (good.double(), TypeError, f"{name} must be float32")]
+    if good.dim():
+        shape_msg = "unsupported packet shape" if name == "x" \
+            else f"{name} must have shape"
+        faults += [(good[..., :1], ValueError, shape_msg),
+                   (torch.stack([good, good], -1)[..., 0], ValueError,
+                    f"{name} must be contiguous")]
+    for bad, exc, msg in faults:
+        with pytest.raises(exc, match=msg):
+            _robust_call({**ops, name: bad})
+    assert (t_ra.LAUNCHES, t_ra.BATCHED_LAUNCHES) == before
+    _robust_call(ops)
+    assert t_ra.LAUNCHES == before[0] + 1
+
+
 @pytest.mark.cuda
 def test_cuda_flip_bit_matches_cpu(dev):
     rng = np.random.default_rng(1)
@@ -491,6 +604,49 @@ def test_cuda_packet_mask_matches_plain(dev, R, F_, dtype):
     assert t_pm.LAUNCHES == before + 1 and out.dtype == dtype
     assert torch.equal(_bits(out), _bits(packet_mask_ref(x, m)))
     assert bool(torch.signbit(out[0, 3])) and float(out[0, 3]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F_", [255, 256])
+def test_cuda_packet_mask_unaligned_view_matches_plain(dev, dtype, F_):
+    """Rows that start one element past an aligned address (a contiguous
+    view at an offset) and an odd F: the scalar path, bitwise the plain
+    version; NaN * 0 stays NaN and -x * 0 is -0.0."""
+    R = 36
+    rng = np.random.default_rng(F_)
+    flat = rng.normal(size=R * F_ + 1).astype(np.float32)
+    base = torch.tensor(flat, device=dev).to(dtype)
+    x = base[1:].view(R, F_)
+    x[0, :4] = torch.tensor([np.nan, np.inf, -np.inf, -0.0])
+    m = torch.tensor((rng.random(R) > 0.3).astype(np.float32), device=dev)
+    m[0] = 0.0
+    before = t_pm.LAUNCHES
+    out = t_pm.packet_mask_call(x, m)
+    torch.cuda.synchronize()
+    assert t_pm.LAUNCHES == before + 1
+    assert torch.equal(_bits(out), _bits(packet_mask_ref(x, m)))
+    assert bool(torch.isnan(out[0, 0])) and bool(torch.signbit(out[0, 3]))
+
+
+@pytest.mark.cuda
+def test_cuda_packet_mask_binding_names_each_fault(dev):
+    x = torch.ones((4, 32), device=dev)
+    m = torch.ones(4, device=dev)
+    before = t_pm.LAUNCHES
+    for args, exc, msg in [
+            ((x, m.cpu()), ValueError, "CUDA tensors only, and mask "),
+            ((x.cpu(), m), ValueError, "CUDA tensors only, and x "),
+            ((x.double(), m), TypeError, "x must be"),
+            ((x, m.double()), TypeError, "mask must be"),
+            ((x, m[:3]), ValueError, "mask must have shape"),
+            ((x.t().contiguous().t(), m), ValueError,
+             "x must be contiguous")]:
+        with pytest.raises(exc, match=msg):
+            t_pm.packet_mask_call(*args)
+    assert t_pm.LAUNCHES == before
+    assert t_pm.packet_mask_call(x[:0], m[:0]).shape == (0, 32)
+    assert t_pm.LAUNCHES == before
 
 
 @pytest.mark.cuda

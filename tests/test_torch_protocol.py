@@ -56,6 +56,7 @@ from repro_torch.core.tra import TRAConfig as TTRA
 from repro_torch.data.synthetic import generate_synthetic as t_generate
 from repro_torch.kernels.common import RATE_EPS
 from repro_torch.kernels.packet_mask import ops as t_pm_ops
+from repro_torch.kernels.packet_mask import packet_mask as t_pm
 from repro_torch.kernels.packet_mask.packet_mask import \
     packet_mask_call as t_pm_call
 from repro_torch.kernels.qfed_reweight import ops as t_qr_ops
@@ -504,3 +505,46 @@ def test_kernel_calls_raise_on_cpu_tensors(name):
             "packet_mask": lambda: t_pm_call(x[0], torch.ones(4))}[name]
     with pytest.raises(ValueError, match="CUDA"):
         call()
+
+
+class _OnCard:
+    """Stands in for a tensor on the card: the refusal reads only
+    ``is_cuda``."""
+    is_cuda = True
+
+
+@pytest.mark.parametrize("cpu", ["x", "mask", "both"])
+def test_packet_mask_refuses_a_cpu_operand_first(cpu):
+    """A CPU tensor in either operand raises the CUDA refusal, named,
+    before the counter moves and before the library is built or loaded,
+    whatever else is wrong with it (here a float64 of the wrong shape)."""
+    bad = torch.zeros((2, 3, 5), dtype=torch.float64)
+    x = _OnCard() if cpu == "mask" else bad
+    mask = _OnCard() if cpu == "x" else bad
+    before = (t_pm.LAUNCHES, t_pm._lib.cache_info())
+    name = "mask" if cpu == "mask" else "x"
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        t_pm.packet_mask_call(x, mask)
+    assert (t_pm.LAUNCHES, t_pm._lib.cache_info()) == before
+
+
+def test_packet_mask_check_names_the_operand():
+    """The per-operand fallback of the one-pass check: device (naming
+    CUDA), dtype, shape, contiguity, in that order. The binding keeps
+    its own check, apart from the other kernels' bindings."""
+    card = torch.device("cuda", 0)
+    dt = (torch.float32, torch.bfloat16)
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="x must be a CUDA tensor on "
+                                         "cuda:0, not on cpu"):
+        t_pm._check("x", x, (4, 8), dt, card)
+    with pytest.raises(TypeError, match="x must be torch.float32 or "
+                                        "torch.bfloat16, not torch.float16"):
+        t_pm._check("x", x.half(), (4, 8), dt, x.device)
+    with pytest.raises(ValueError, match=r"mask must have shape \(4,\)"):
+        t_pm._check("mask", torch.zeros(3), (4,), dt[:1], x.device)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        t_pm._check("x", x.t(), (8, 4), dt, x.device)
+    t_pm._check("x", x.bfloat16(), (4, 8), dt, x.device)
+    assert t_pm._check.__module__ == t_pm.__name__

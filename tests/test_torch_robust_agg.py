@@ -239,10 +239,49 @@ def test_trimmed_mean_matches_numpy_oracle():
                                rtol=1e-5, atol=1e-5)
 
 
-def _kernel_extraction(y, valid, k):
+def _kernel_trim(y, valid, k):
     """The CUDA kernel's trimmed mean (csrc/robust_agg.cu), transcribed
-    in numpy float32: pass i takes the (value, index) successor of pass
-    i-1, capped at +-TRIM_BIG from the second pass on."""
+    in numpy float32: one pass over the clients in index order inserts
+    each client's lo and hi value into sorted lists of K = k rounded up
+    to a power of two slots (+-inf when empty, a NaN moves nothing); pass
+    i's value is slot i, capped at +-TRIM_BIG from the second pass on (a
+    valid NaN makes total NaN, so pass 0 needs no case for it)."""
+    big = np.float32(TRIM_BIG)
+    K = next(s for s in t_ra.TRIM_SLOTS if s >= k)
+    C_, P_, F_ = y.shape
+    out = np.zeros((P_, F_), np.float32)
+    for p in range(P_):
+        for f in range(F_):
+            n = total = np.float32(0)
+            lo, hi = [np.float32(np.inf)] * K, [np.float32(-np.inf)] * K
+            for c in range(C_):
+                v, yc = valid[c, p], y[c, p, f]
+                n += v
+                total += yc * v
+                lv, hv = (yc, yc) if v > 0 else (big, -big)
+                for i in range(K - 1, 0, -1):
+                    lo[i] = lo[i - 1] if lv < lo[i - 1] else \
+                        (lv if lv < lo[i] else lo[i])
+                    hi[i] = hi[i - 1] if hv > hi[i - 1] else \
+                        (hv if hv > hi[i] else hi[i])
+                lo[0] = lv if lv < lo[0] else lo[0]
+                hi[0] = hv if hv > hi[0] else hi[0]
+            bot = top = np.float32(0)
+            for i in range(k):
+                bot += lo[0] if i == 0 else (lo[i] if lo[i] < big else big)
+                top += hi[0] if i == 0 else \
+                    (hi[i] if hi[i] > -big else -big)
+            two_k = np.float32(2 * k)
+            cnt = max(n - two_k, np.float32(1))
+            out[p, f] = (total - top - bot) / cnt if n > two_k \
+                else total / max(n, np.float32(1))
+    return out
+
+
+def _successor_extraction(y, valid, k):
+    """The reference's k passes as a successor extraction: pass i takes
+    the (value, index) successor of pass i-1 (the reference retires
+    first occurrences), capped at +-TRIM_BIG from the second pass on."""
     big = np.float32(TRIM_BIG)
     C_, P_, F_ = y.shape
     out = np.zeros((P_, F_), np.float32)
@@ -282,10 +321,10 @@ def _kernel_extraction(y, valid, k):
 
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_kernel_extraction_order_matches_sort(k):
-    """The kernel's successor extraction against the sorting plain
-    version, on ties, values past TRIM_BIG and infinities: the same
-    estimator (the kernel runs only on the card; this holds its
-    algorithm here)."""
+    """The kernel's trimmed mean against the sorting plain version, on
+    ties, values past TRIM_BIG and infinities: the same estimator (the
+    kernel runs only on the card; this holds its algorithm here); and
+    bitwise the reference's k-pass extraction."""
     rng = np.random.default_rng(29 + k)
     C_, P_, F_ = 9, 8, 16
     y = rng.integers(-3, 4, size=(C_, P_, F_)).astype(np.float32)  # ties
@@ -297,11 +336,40 @@ def test_kernel_extraction_order_matches_sort(k):
     valid[:, 3] = 1.0
     valid[:, 4] = 0.0                         # nothing valid
     with np.errstate(over="ignore", invalid="ignore"):   # inf - inf
-        got = _kernel_extraction(y, valid, k)
+        got = _kernel_trim(y, valid, k)
+        assert _same_bits(got, _successor_extraction(y, valid, k))
     want = masked_trimmed_mean(torch.tensor(y), torch.tensor(valid),
                                k).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6,
                                equal_nan=True)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 9])
+@pytest.mark.parametrize("nan", [False, True])
+def test_kernel_trim_equals_the_k_pass_extraction(k, nan):
+    """The kernel's one-pass sorted lists bitwise the reference's k-pass
+    extraction (NaN by position) on ties, values past TRIM_BIG,
+    infinities, n <= 2k and, with ``nan``, NaN in valid slots (an
+    undefended trim), for k at and between the kernel's list lengths."""
+    rng = np.random.default_rng(31 + k)
+    C_, P_, F_ = 19, 8, 16
+    y = rng.integers(-3, 4, size=(C_, P_, F_)).astype(np.float32)
+    y[:, 1] = rng.normal(size=(C_, F_)) * 1e38
+    y[2, 2, :4] = np.inf
+    y[5, 2, 2:6] = -np.inf
+    y[:, 3] = 3.3e38
+    valid = (rng.random((C_, P_)) < 0.75).astype(np.float32)
+    valid[:, 3] = 1.0
+    valid[:, 4] = 0.0
+    valid[:3, 5], valid[3:, 5] = 1.0, 0.0     # n = 3 <= 2k for k >= 2
+    if nan:
+        y[4, 6, :8] = np.nan
+        valid[4, 6] = 1.0
+        y[:, 7, 0] = np.nan                   # every valid slot NaN
+        valid[:, 7] = 1.0
+    with np.errstate(over="ignore", invalid="ignore"):
+        assert _same_bits(_kernel_trim(y, valid, k),
+                          _successor_extraction(y, valid, k))
 
 
 def test_trim_defeats_sign_flip_byzantine():
@@ -357,3 +425,101 @@ def test_kernel_binding_refuses_cpu_tensors():
     assert (t_ra.LAUNCHES, t_ra.BATCHED_LAUNCHES) == before
     assert "robust_agg" in _build.KERNELS
     assert (_build.CSRC / "robust_agg.cu").exists()
+
+
+class _OnCard:
+    """Stands in for a tensor on the card: the refusal reads only
+    ``is_cuda``, so a CPU tensor in any other slot is what it refuses."""
+    is_cuda = True
+
+
+_OPERANDS = ("x", "m", "q", "w_or_den", "screen", "trim_gate", "ef", "g",
+             "w_pos")
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("name", _OPERANDS)
+def test_kernel_entries_refuse_a_cpu_operand_first(batched, name):
+    """A CPU tensor in any operand raises the CUDA refusal, named, before
+    a counter moves and before the library is built or loaded: the rest
+    of the operands stand in for tensors on the card, and the CPU one is
+    also of the wrong dtype and shape, so no later check can raise
+    first."""
+    ops = {k: _OnCard() for k in _OPERANDS}
+    ops[name] = torch.zeros(3, dtype=torch.float64)
+    entry = t_ra.robust_agg_batched_call if batched else t_ra.robust_agg_call
+    before = (t_ra.LAUNCHES, t_ra.BATCHED_LAUNCHES, t_ra._lib.cache_info())
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        entry(*(ops[k] for k in _OPERANDS[:6]), ef=ops["ef"], g=ops["g"],
+              w_pos=ops["w_pos"], trim_k=2, per_coord=False)
+    assert (t_ra.LAUNCHES, t_ra.BATCHED_LAUNCHES,
+            t_ra._lib.cache_info()) == before
+
+
+@pytest.mark.parametrize("S,C_,P_,F_,trim_k,ef,want", [
+    (1, 12, 36, 256, 2, False, t_ra.Plan(12, 2, 12 * 256 * 4)),   # cell
+    (9, 12, 36, 256, 2, False, t_ra.Plan(12, 2, 12 * 256 * 4)),   # grid
+    (1, 12, 36, 256, 0, False, t_ra.Plan(12, 0, 12 * 256 * 4)),
+    (1, 1, 36, 256, 1, True, t_ra.Plan(1, 1, 2 * 256 * 4)),
+    (1, 16, 36, 256, 3, False, t_ra.Plan(16, 4, 16 * 256 * 4)),
+    (1, 17, 36, 256, 5, False, t_ra.Plan(16, 8, 16 * 256 * 4)),
+    (1, 17, 36, 256, 0, True, t_ra.Plan(16, 0, 2 * 16 * 256 * 4)),
+    (1, 64, 1024, 256, 2, True, t_ra.Plan(16, 2, 2 * 16 * 256 * 4)),
+    (8, 64, 1024, 256, 0, False, t_ra.Plan(16, 0, 16 * 256 * 4)),
+    (1, 64, 4, 1024, 16, True, t_ra.Plan(16, 16, 2 * 16 * 1024 * 4)),
+    (65535, 1, 1, 32, 0, False, t_ra.Plan(1, 0, 32 * 4))])
+def test_launch_plan_at_the_paths_shapes(S, C_, P_, F_, trim_k, ef, want):
+    assert t_ra.plan(S, C_, P_, F_, trim_k, ef) == want
+    # the most a CTA may opt into, beside the kernel's 896 static bytes
+    assert want.smem + 896 <= 232448
+
+
+@pytest.mark.parametrize("S,C_,P_,F_,trim_k,msg", [
+    (1, 12, 36, 48, 2, "F a multiple of 32"),
+    (1, 12, 36, 16, 2, "F a multiple of 32"),
+    (1, 12, 36, 1056, 0, "F a multiple of 32"),
+    (1, 0, 36, 256, 2, "S, C, P > 0"),
+    (1, 12, 0, 256, 2, "S, C, P > 0"),
+    (0, 12, 36, 256, 2, "S, C, P > 0"),
+    (65536, 12, 36, 256, 2, "at most 65535 scenarios"),
+    (1, 12, 36, 256, -1, "trim_k must be in \\[0, 16\\]"),
+    (1, 40, 36, 256, 17, "trim_k must be in \\[0, 16\\]")])
+def test_launch_plan_refuses_what_the_kernel_cannot_take(S, C_, P_, F_,
+                                                         trim_k, msg):
+    for ef in (False, True):
+        with pytest.raises(ValueError, match=msg):
+            t_ra.plan(S, C_, P_, F_, trim_k, ef)
+
+
+def test_launch_plan_constants_follow_the_kernel_source():
+    """CHUNK and TRIM_SLOTS restate the kernel's largest chunk and its
+    trim instances, and the kernel's static shared memory (two buffers of
+    32 warp words and 5 scalars a client) is what the plan's bound above
+    leaves beside the chunk's rows: the planner holds only while they
+    agree."""
+    src = (_build.CSRC / "robust_agg.cu").read_text()
+    assert f"constexpr int kChunk = {t_ra.CHUNK};" in src
+    assert "constexpr int kMaxWarps = 32;" in src
+    assert src.count("[2][kChunk]") == 5 and "s_bad[2][kMaxWarps]" in src
+    assert 2 * (32 + 5 * t_ra.CHUNK) * 4 == 896
+    for k in (0, *t_ra.TRIM_SLOTS):
+        assert f"kernel = robust_agg_kernel<{k}>;" in src
+
+
+def test_binding_check_names_the_operand():
+    """The per-operand fallback of the one-pass check: device (naming
+    CUDA), dtype, shape, contiguity, in that order."""
+    card = torch.device("cuda", 0)
+    t = torch.zeros((2, 3))
+    with pytest.raises(ValueError, match="m must be a CUDA tensor on "
+                                         "cuda:0, not on cpu"):
+        t_ra._check("m", t, (2, 3), card)
+    here = t.device
+    with pytest.raises(TypeError, match="q must be float32"):
+        t_ra._check("q", t.double(), (2, 3), here)
+    with pytest.raises(ValueError, match=r"g must have shape \(3, 2\)"):
+        t_ra._check("g", t, (3, 2), here)
+    with pytest.raises(ValueError, match="ef must be contiguous"):
+        t_ra._check("ef", t.t(), (3, 2), here)
+    t_ra._check("x", t, (2, 3), here)
