@@ -24,8 +24,12 @@ Phases:
                 ssq, f32 and bf16, at the main-path shape and a tiling
                 shape; uplink_fused_batched the same at the grid's shape
                 (S=27) and a tiling shape, and bitwise against S single
-                launches; netsim_mask bitwise vs ge_mask_ref at the
-                grid's shape (R=270, P=36) and a tiling shape
+                launches; uplink_fused at packet widths F = 255, 20 and
+                20,000 and on rows one element past an aligned address,
+                f32 and bf16, against uplink_ref, their 3-scenario
+                launches bitwise the single ones; netsim_mask bitwise vs
+                ge_mask_ref at the grid's shape (R=270, P=36) and a
+                tiling shape
   3. main path  the quickstart's three configurations (threshold 70%,
                 TRA 10%, lossless), q-FedAvg, 50 rounds, N=30, C=10,
                 with every launch count set to 0 just before and read
@@ -49,10 +53,15 @@ Phases:
                 launches; with the gates off, robust_agg bitwise against
                 uplink_fused; the kernel's client chunks (C = 1, 3, 5,
                 16, 17, 19, 40 at F = 256, C = 48 and 64 at F =
-                1024: below, at and past a chunk boundary, n <= 2k, and
+                1024, C = 12 and 17 at F = 100, C = 12 at F = 1024:
+                below, at and past a chunk boundary, n <= 2k, and
                 trim k = 1, 2, 3, 6 and 9, each trim list length) with
                 NaN and Inf planted in one client of one packet, batched
-                launches of them bitwise the single ones. Then the
+                launches of them bitwise the single ones; trim_k = 17
+                and 24 at C = 40 (the k passes over a column) and C =
+                14, k = 6, bitwise the reference's k-pass extraction (a
+                numpy copy), within 1e-6 of robust_ref where that holds
+                (reported). Then the
                 docs/EXPERIMENTS.md fault grid
                 (clean, faulted undefended, faulted defended; 40 rounds,
                 N=20, C=12) through SweepEngine with the counts set to 0
@@ -61,7 +70,10 @@ Phases:
                 defended cell alone through FederatedServer; and the
                 3-cell grid for 5 rounds on the card and on the CPU:
                 equal cohorts and quarantine counts, and each round from
-                the CPU's state at the parity tolerances
+                the CPU's state at the parity tolerances; and a defended
+                FederatedServer run with DefenseConfig(trim=True,
+                trim_k=17) at C = 40 for 5 rounds on the card and on the
+                CPU, held the same way
   7. recovery   fec_recover bitwise vs fec_recover_ref at the recipe's
                 shape (R=72, P=36, G=8) and a tiling shape (R=4096,
                 P=1024, G=8 and G=3), and through the op's vmap rule
@@ -81,7 +93,9 @@ Phases:
                 (CUDA events, median of 100 after warm-up, 20 at the
                 tiling shapes of robust_agg, fec_recover and the
                 protocol kernels), device time from torch.profiler, the
-                bound; and profiles of quickstart rounds, of grid
+                bound; uplink_fused at the tiling shape with EF in f32
+                and bf16 and robust_agg with trim_k = 17 at C = 40 too;
+                and profiles of quickstart rounds, of grid
                 rounds, of defended grid rounds, of recovery grid rounds
                 and of host-loop rounds
   9. protocol   (runs before 8) packet_mask bitwise vs packet_mask_ref
@@ -90,7 +104,8 @@ Phases:
                 255) and on rows that start one element past an aligned
                 address, its vmap fold one launch; tra_agg vs
                 tra_agg_ref for every debias mode at
-                (10, 36, 256), (16, 1024, 256) and (3, 8, 128), its
+                (10, 36, 256), (16, 1024, 256), (3, 8, 128), (10, 36,
+                255) and (4, 3, 2500), its
                 scenario axis one launch, bitwise S single launches;
                 qfed_reweight's delta bitwise, ssq and h close, its vmap
                 fold one launch. Then the reference's host-loop round
@@ -181,7 +196,8 @@ from repro_torch.kernels.qfed_reweight.ref import (  # noqa: E402
     qfed_reweight_ref)
 from repro_torch.kernels.robust_agg import robust_agg as ra  # noqa: E402
 from repro_torch.kernels.robust_agg.ops import robust_prepass  # noqa: E402
-from repro_torch.kernels.robust_agg.ref import robust_ref  # noqa: E402
+from repro_torch.kernels.robust_agg.ref import (TRIM_BIG,  # noqa: E402
+                                                robust_ref)
 from repro_torch.kernels.tra_agg import ops as ta_ops  # noqa: E402
 from repro_torch.kernels.tra_agg import tra_agg as ta  # noqa: E402
 from repro_torch.kernels.tra_agg.ref import tra_agg_ref  # noqa: E402
@@ -220,6 +236,7 @@ ROBUST_TILE_SHAPE = (64, 1024, 256)
 ROBUST_GRID_SHAPE = (9, 12, 36, 256)   # S = 3 cells x 3 seeds
 ROBUST_GRID_TILE_SHAPE = (8, 64, 1024, 256)
 TRIM_K = 2
+TRIM17_SHAPE = (40, 36, 256)    # C, P, F of the trim_k = 17 run
 FAULT_ROUNDS = 40
 FEC_SHAPE = (72, 36, 8)         # R = S * C, P, G of the recovery grid
 FEC_TILE_SHAPES = ((4096, 1024, 8), (4096, 1024, 3))
@@ -233,6 +250,7 @@ PROTOCOL_D = 9098               # the MLP's width: P = 36 packets of 256
 QFED_ROUNDS = 10
 TRA_SHAPE = (10, 36, 256)       # C, P, F of the host loop's aggregate
 TRA_TILE_SHAPE = (16, 1024, 256)   # the reference's bench shape
+TRA_TAIL_SHAPES = ((10, 36, 255), (4, 3, 2500))
 PM_SHAPE = (36, 256)            # P, F of one client's upload
 PM_TILE_SHAPE = (4096, 256)     # the reference's bench shape, D = 2**20
 SERVE_ARCH = "qwen1.5-4b"       # the serving launcher's defaults
@@ -497,6 +515,83 @@ def check_batched_kernel(dev):
           f"1e-5) and equal S single launches bitwise; max |agg err| "
           f"{max_err:.3e}", flush=True)
     return max_err
+
+
+UPLINK_TAIL_SHAPES = ((10, 36, 255), (10, 36, 20), (4, 3, 20000))
+
+
+def misaligned(t):
+    """A copy of ``t`` whose data starts one element past an aligned
+    address, which the kernel copies a float at a time."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_uplink_tails(dev):
+    """uplink_fused where its rows are not whole 16-byte groups: F =
+    255 and 20, F = 20,000 (a row over 20 CTAs), and the main-path shape
+    on rows one element past an aligned address; f32 and bf16, both
+    denominator kinds, with and without EF and ssq. Against uplink_ref
+    (agg rtol 1e-5 / atol 1e-6, EF bitwise, ssq rtol 1e-5), and S = 3
+    batched launches bitwise 3 single launches. Returns the number of
+    cases and the largest |agg err|."""
+    n, err = 0, 0.0
+    cases = [(shape, False) for shape in UPLINK_TAIL_SHAPES]
+    cases.append((MAIN_SHAPE, True))
+    for (shape, shift), dtype, mode, full in itertools.product(
+            cases, (torch.float32, torch.bfloat16),
+            ("per_coord_count", "group_rate"), (False, True)):
+        x, ef, m, q, wd, pc = uplink_inputs(shape, 700 + n, dev, mode=mode,
+                                            use_ef=full, stream_dtype=dtype)
+        if shift:
+            x = misaligned(x)
+            ef = None if ef is None else misaligned(ef)
+        n += 1
+        case = (f"tail shape={shape} shifted={shift} dtype={dtype} "
+                f"mode={mode} ef/ssq={full}")
+        agg, ef_out, ssq = uf.uplink_fused_call(x, m, q, wd, ef=ef,
+                                                want_ssq=full, per_coord=pc)
+        torch.cuda.synchronize()
+        r_agg, r_ef, r_ssq = uplink_ref(x, m, q, wd, ef=ef, want_ssq=full,
+                                        per_coord=pc)
+        torch.testing.assert_close(agg, r_agg, rtol=1e-5, atol=1e-6,
+                                   msg=lambda e: f"agg {case}: {e}")
+        err = max(err, float((agg - r_agg).abs().max()))
+        if full:
+            if not torch.equal(ef_out, r_ef.to(dtype)):
+                fail(f"ef_out not bitwise: {case}")
+            torch.testing.assert_close(ssq.sum(-1), r_ssq, rtol=1e-5,
+                                       atol=0.0,
+                                       msg=lambda e: f"ssq {case}: {e}")
+        elif ef_out is not None or ssq is not None:
+            fail(f"ef_out or ssq without asking: {case}")
+        # three scenarios in one launch, bitwise three single launches
+        bx, bef, bm, bq, bwd, _ = batched_inputs(
+            (3, *shape), 800 + n, dev, mode=mode, use_ef=full,
+            stream_dtype=dtype)
+        if shift:
+            bx = misaligned(bx)
+            bef = None if bef is None else misaligned(bef)
+        b_agg, b_ef, b_ssq = uf.uplink_fused_batched_call(
+            bx, bm, bq, bwd, ef=bef, want_ssq=full, per_coord=pc)
+        for i in range(3):
+            a, e, sq = uf.uplink_fused_call(
+                bx[i], bm[i], bq[i], bwd[i],
+                ef=None if bef is None else bef[i], want_ssq=full,
+                per_coord=pc)
+            if not (torch.equal(a, b_agg[i])
+                    and (e is None or torch.equal(e, b_ef[i]))
+                    and (sq is None or torch.equal(sq, b_ssq[i]))):
+                fail(f"batched launch differs from single launch {i}: "
+                     f"{case}")
+    print(f"[kernels] uplink_fused tails: {n} cases at F = 255, 20 and "
+          f"20,000 and on rows one element past aligned match uplink_ref "
+          f"(agg rtol 1e-5 atol 1e-6, EF bitwise, ssq rtol 1e-5), and "
+          f"their 3-scenario launches equal the single ones bitwise; max "
+          f"|agg err| {err:.3e}", flush=True)
+    return n, err
 
 
 def mask_inputs(shape, seed, dev):
@@ -784,7 +879,7 @@ def run_grid_phase(card):
 # phase 6
 # ---------------------------------------------------------------------------
 def robust_inputs(shape, seed, dev, *, mode, use_ef, gates_on,
-                  finite=False):
+                  finite=False, trim_k=TRIM_K):
     """One scenario's robust-kernel operands as the engine makes them
     (``robust_prepass``): uploads with a partial last packet and, unless
     ``finite``, NaN and Inf planted in three packets; EF rows, masks,
@@ -809,7 +904,7 @@ def robust_inputs(shape, seed, dev, *, mode, use_ef, gates_on,
     scr, cn, trg = (1.0, 5.0, 1.0) if gates_on else (0.0, CLIP_OFF, 0.0)
     return robust_prepass(
         x, m, w, mode=mode, d_up=d_up, screen=scr, clip_norm=cn,
-        trim_gate=trg, trim_k=0 if mode == "per_coord_count" else TRIM_K,
+        trim_gate=trg, trim_k=0 if mode == "per_coord_count" else trim_k,
         ef_rows=ef, sufficient=suff, loss_rate=0.3, mult=mult)
 
 
@@ -863,7 +958,9 @@ def check_robust_plain(agg, ef_out, args, trim_k, per_coord, case):
 ROBUST_CHUNK_CASES = ((1, 36, 256, 2), (3, 36, 256, 2), (5, 36, 256, 1),
                       (16, 36, 256, 2), (17, 36, 256, 2), (17, 36, 256, 0),
                       (19, 36, 256, 3), (40, 36, 256, 6), (40, 8, 256, 9),
-                      (48, 8, 1024, 2), (64, 8, 1024, 0))
+                      (48, 8, 1024, 2), (64, 8, 1024, 0),
+                      # packet widths off a multiple of 32, and F = 1024
+                      (12, 36, 100, 2), (17, 36, 100, 0), (12, 8, 1024, 2))
 
 
 def chunk_robust_args(shape, seed, dev, *, per_coord, gates_on, use_ef):
@@ -924,6 +1021,143 @@ def check_robust_chunks(dev):
                 fail(f"robust batched launch differs from single launch "
                      f"{i}: {case}")
     return n, err
+
+
+# (C, P, F, trim_k, share of packets lost): trim_k past the kernel's
+# lists (the k passes over a column) at C = 40, trimming (n > 2k) and not,
+# and at C = 60, F = 1024, where the column outgrows shared memory and
+# lies in device memory; and C = 14, k = 6 on the lists, where n - 2k is
+# about 1
+TRIM_PASS_CASES = ((40, 36, 256, 17, 0.05), (40, 36, 256, 24, 0.05),
+                   (40, 36, 256, 17, 0.3), (60, 4, 1024, 17, 0.05),
+                   (14, 36, 256, 6, 0.05))
+
+
+def kpass_trimmed(y, valid, k):
+    """The reference's k-pass trimmed mean (``_trimmed_extract``) in
+    numpy float32, in the order of its passes: n and total summed over
+    the clients in index order; pass i takes the (value, index) successor
+    of pass i-1's extraction (the reference retires first occurrences),
+    an invalid client reading +-TRIM_BIG, a NaN never taken, and from
+    the second pass on a value not below TRIM_BIG (above -TRIM_BIG)
+    counting as TRIM_BIG; bot and top summed in pass order; n <= 2k
+    falls back to the masked mean. y: (C, P, F), valid: (C, P)."""
+    f32 = np.float32
+    big = f32(TRIM_BIG)
+    C = y.shape[0]
+    v = np.broadcast_to(valid[:, :, None], y.shape)
+    n = np.zeros(y.shape[1:], f32)
+    total = np.zeros(y.shape[1:], f32)
+    for c in range(C):
+        n += v[c]
+        total += y[c] * v[c]
+    idx = np.arange(C)[:, None, None]
+    sums = []
+    for sign in (1, -1):        # bot: the smallest first; top: the largest
+        vals = np.where(v > 0, y, sign * big).astype(f32)
+        last_v = np.full(y.shape[1:], -sign * np.inf, f32)
+        last_c = np.full(y.shape[1:], -1)
+        acc = np.zeros(y.shape[1:], f32)
+        for i in range(k):
+            s_vals, s_last = sign * vals, sign * last_v
+            after = (s_vals > s_last) | ((s_vals == s_last)
+                                         & (idx > last_c))
+            best = np.where(after, s_vals, np.inf).min(0)
+            any_after = after.any(0)
+            first = np.argmax(after & (s_vals == best), axis=0)
+            taken = np.take_along_axis(vals, first[None], 0)[0]
+            bv = np.where(any_after, taken, sign * big).astype(f32)
+            last_v = np.where(any_after, bv, last_v).astype(f32)
+            last_c = np.where(any_after, first, last_c)
+            capped = (sign * bv >= big) | np.isnan(bv)
+            acc += np.where((i > 0) & capped, sign * big, bv).astype(f32)
+        sums.append(acc)
+    bot, top = sums
+    two_k = f32(2 * k)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        trimmed = (total - top - bot) / np.maximum(n - two_k, f32(1))
+        plain = total / np.maximum(n, f32(1))
+    return np.where(n > two_k, trimmed, plain).astype(f32)
+
+
+def trim_inputs(args, per_coord):
+    """The kernel's trim estimates y and validities from its operands:
+    the screen's sanitised uploads times g, and the quarantined mask
+    times w_pos (each one rounding, as in the kernel)."""
+    x, m, q, wd, scr, trg, ef, g, w_pos = (
+        None if t is None else t.cpu().numpy() for t in args)
+    xe = x if ef is None else (x + ef).astype(np.float32)
+    fin = np.isfinite(xe)
+    on = bool(scr > 0.5)
+    xs = np.where(on & ~fin, np.float32(0), xe).astype(np.float32)
+    me = (m * fin.all(-1)).astype(np.float32) if on else m
+    y = (xs * g[:, None, None]).astype(np.float32)
+    return y, (me * w_pos[:, None]).astype(np.float32)
+
+
+def check_trim_passes(dev):
+    """trim_k = 17 and 24 at C = 40 (the k passes over a column) and
+    C = 14, k = 6 (the lists) with the trim on, the screen on and off,
+    with and without EF: bitwise the reference's k-pass extraction (NaN
+    by position), and against robust_ref at rtol = atol = 1e-6 where it
+    holds: where n - 2k is small, bot and top (summed in extraction
+    order) and the plain version's sorted slice cancel apart in total -
+    top - bot, so that comparison is reported, not required. Two-scenario
+    launches bitwise the single ones. Returns the number of cases, the
+    number within 1e-6 of robust_ref and the largest |agg err|."""
+    n = held = 0
+    err = 0.0
+    for (C, P, F, k, lost), scr, use_ef in itertools.product(
+            TRIM_PASS_CASES, (0.0, 1.0), (False, True)):
+        args = list(chunk_robust_args((C, P, F), 950 + n, dev,
+                                      per_coord=False, gates_on=True,
+                                      use_ef=use_ef))
+        g = torch.Generator(device=dev).manual_seed(960 + n)
+        args[1] = (torch.rand((C, P), device=dev, generator=g)
+                   >= lost).float()
+        args[4] = torch.tensor(scr, device=dev)
+        n += 1
+        case = (f"trim passes C={C} P={P} F={F} trim_k={k} lost={lost} "
+                f"screen={scr} ef={use_ef}")
+        kw = robust_kw(args, k, False)
+        agg, ef_out = ra.robust_agg_call(*args[:6], **kw)
+        torch.cuda.synchronize()
+        with np.errstate(invalid="ignore", over="ignore"):  # inf * 0
+            want = kpass_trimmed(*trim_inputs(args, False), k)
+        if not same_bits(agg.cpu(), torch.from_numpy(want)):
+            fail(f"trimmed mean not bitwise the k-pass extraction: {case}")
+        r_agg, r_ef, _ = robust_ref(*args[:4], screen=args[4],
+                                    trim_gate=args[5], **kw)
+        if ef_out is not None and not same_bits(ef_out, r_ef):
+            fail(f"robust ef_out not bitwise: {case}")
+        both = torch.isfinite(agg) & torch.isfinite(r_agg)
+        if not torch.equal(torch.isnan(agg), torch.isnan(r_agg)):
+            fail(f"robust agg NaN positions differ: {case}")
+        e = float((agg - r_agg)[both].abs().max()) if bool(both.any()) \
+            else 0.0
+        err = max(err, e)
+        held += bool(torch.allclose(agg[both], r_agg[both], rtol=1e-6,
+                                    atol=1e-6))
+        two = [None if a is None else torch.stack([a, a.flip(0)
+                                                   if a.dim() else a])
+               for a in args]
+        b_agg, b_ef = ra.robust_agg_batched_call(*two[:6],
+                                                 **robust_kw(two, k, False))
+        for i in range(2):
+            a1, e1 = ra.robust_agg_call(
+                *(t[i] for t in two[:6]),
+                **robust_kw([None if t is None else t[i] for t in two], k,
+                            False))
+            if not (same_bits(a1, b_agg[i])
+                    and (e1 is None or same_bits(e1, b_ef[i]))):
+                fail(f"robust batched launch differs from single launch "
+                     f"{i}: {case}")
+    print(f"[faults] trim passes: {n} cases (trim_k 17 and 24 at C = 40, "
+          f"17 at C = 60 with the column in device memory, 6 at C = 14) "
+          f"bitwise the k-pass extraction, their two-scenario "
+          f"launches bitwise the single ones; within 1e-6 of robust_ref in "
+          f"{held} of {n}, max |agg err| {err:.3e}", flush=True)
+    return n, held, err
 
 
 def check_robust_kernels(dev):
@@ -990,6 +1224,7 @@ def check_robust_kernels(dev):
                  f"uplink_fused: shape={shape} mode={mode} ef={use_ef}")
     n_chunks, chunk_err = check_robust_chunks(dev)
     err["single"] = max(err["single"], chunk_err)
+    check_trim_passes(dev)
     print(f"[faults] robust_agg: {n_single} cases match robust_ref (agg "
           f"rtol 1e-6 atol 1e-6, NaN positions equal, EF bitwise), max "
           f"|agg err| {err['single']:.3e}; robust_agg_batched: "
@@ -1123,6 +1358,77 @@ def check_fault_card_vs_cpu(data, nets):
           f"(finite entries; NaN positions equal)", flush=True)
 
 
+TRIM17_CLIENTS = 50
+
+
+def trim17_cfg(n_rounds):
+    """A defended run whose trim is past the kernel's lists: C = 40 of
+    50 clients, TRA at 2% loss (so that n > 2k in most packets), faults
+    on, screen + clip 20 + trim 17 (the k passes over a column)."""
+    return FLConfig(algo="fedavg", n_rounds=n_rounds, clients_per_round=40,
+                    local_steps=4, batch_size=16, eval_every=10 ** 6,
+                    seed=3, tra=TRAConfig(enabled=True, loss_rate=0.02),
+                    faults=FaultConfig(enabled=True, corrupt_rate=0.1,
+                                       corrupt_scale=0.5, fail_rate=0.1),
+                    defense=DefenseConfig(screen=True, clip=True,
+                                          clip_norm=20.0, trim=True,
+                                          trim_k=17))
+
+
+def check_trim17_server(card):
+    """DefenseConfig(trim=True, trim_k=17) at C = 40 through
+    FederatedServer for PARITY_ROUNDS rounds on the card and on the CPU:
+    free-running, equal cohorts and quarantine counts every round; round
+    by round from the CPU's state, params and losses at the parity
+    tolerances, quarantine equal. Every card round one robust_agg
+    launch."""
+    rng = np.random.default_rng(5)
+    data = generate_synthetic(rng, n_clients=TRIM17_CLIENTS, alpha=0.5,
+                              beta=0.5)
+    nets = ClientNetworks(np.linspace(0.5, 20.0, TRIM17_CLIENTS),
+                          np.full(TRIM17_CLIENTS, 0.05))
+    servers = {dev: FederatedServer(trim17_cfg(PARITY_ROUNDS), data, nets,
+                                    device=dev) for dev in ("cuda", "cpu")}
+    free = {dev: s.engine.init_state(s.params) for dev, s in servers.items()}
+    forced = free["cpu"]
+    worst = 0.0
+    quarantined = 0
+    zero_counts()
+    for t in range(PARITY_ROUNDS):
+        logs = {}
+        for dev, server in servers.items():
+            free[dev], logs[dev] = server.engine.run_block(free[dev], t, 1)
+        for name in ("ids", "quarantine"):
+            if not np.array_equal(logs["cuda"][name], logs["cpu"][name]):
+                fail(f"trim_k=17 run: {name} differ between cuda and cpu "
+                     f"at round {t}")
+        quarantined += int(np.asarray(logs["cpu"]["quarantine"]).sum())
+        on_card, lg = servers["cuda"].engine.run_block(
+            to_device(forced, "cuda"), t, 1)
+        forced, lc = servers["cpu"].engine.run_block(forced, t, 1)
+        vg = np.concatenate([on_card.params[k].cpu().numpy().ravel()
+                             for k in sorted(on_card.params)])
+        vc = np.concatenate([forced.params[k].cpu().numpy().ravel()
+                             for k in sorted(forced.params)])
+        np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(lg["loss"], lc["loss"], rtol=1e-5)
+        if not np.array_equal(lg["quarantine"], lc["quarantine"]):
+            fail(f"trim_k=17 run: quarantine from the cpu state differs at "
+                 f"round {t}")
+        worst = max(worst, float(np.abs(vg - vc).max()))
+    if ra.LAUNCHES != 2 * PARITY_ROUNDS:
+        fail(f"trim_k=17 run: {ra.LAUNCHES} robust_agg launches on the "
+             f"card, expected {2 * PARITY_ROUNDS}")
+    if not np.isfinite(forced.params["w1"].numpy()).all():
+        fail("trim_k=17 run: the defended params went non-finite")
+    print(f"[faults] DefenseConfig(trim=True, trim_k=17), C = 40, "
+          f"{PARITY_ROUNDS} rounds through FederatedServer, cuda vs cpu: "
+          f"cohorts and quarantine counts ({quarantined} packets) equal "
+          f"every round; round by round from the cpu state, max |param "
+          f"diff| {worst:.3e}; {ra.LAUNCHES} robust_agg launches | {card}",
+          flush=True)
+
+
 def run_fault_phase(card):
     """The fault grid's main path, its seeds through run_grid, the
     defended cell alone, and card vs CPU. Returns the launch counts of
@@ -1184,6 +1490,7 @@ def run_fault_phase(card):
           flush=True)
 
     check_fault_card_vs_cpu(data, nets)
+    check_trim17_server(card)
     return grid_counts, single_counts, rate
 
 
@@ -1518,7 +1825,8 @@ def check_tra_agg_kernel(dev):
     single launches. Returns the largest absolute difference."""
     max_err = 0.0
     for (n, shape), mode in itertools.product(
-            enumerate((TRA_SHAPE, TRA_TILE_SHAPE, (3, 8, 128))),
+            enumerate((TRA_SHAPE, TRA_TILE_SHAPE, (3, 8, 128),
+                       *TRA_TAIL_SHAPES)),
             DEBIAS_MODES):
         c = tra_inputs(shape, n, dev)
         x, m = ta_ops.debias_inputs(c["x"], c["m"], mode=mode,
@@ -1552,7 +1860,8 @@ def check_tra_agg_kernel(dev):
                      f"single launch")
     print(f"[protocol] tra_agg: every debias mode within rtol 1e-6 / atol "
           f"1e-6 of tra_agg_ref at (C, P, F) = {TRA_SHAPE}, "
-          f"{TRA_TILE_SHAPE} and (3, 8, 128), max |diff| {max_err:.3e}; "
+          f"{TRA_TILE_SHAPE}, (3, 8, 128) and, off a multiple of 4, "
+          f"{TRA_TAIL_SHAPES}, max |diff| {max_err:.3e}; "
           f"the scenario axis (S={S}) is one launch, bitwise S single "
           f"launches, every mode", flush=True)
     return max_err
@@ -2079,46 +2388,51 @@ def device_ms(fn, kernel_name, reps=20):
     return total / count / 1e3 if count and total > 0 else None
 
 
-def time_uplink(shape, card):
-    # the main path's call: q-FedAvg, group_rate, no EF, masked norms
-    x, _, m, q, wd, _ = uplink_inputs(shape, 1234, "cuda", mode="group_rate",
-                                      use_ef=False,
-                                      stream_dtype=torch.float32)
+def time_uplink(shape, card, *, use_ef=False, dtype=torch.float32):
+    # the main path's call: q-FedAvg, group_rate, masked norms, no EF (with
+    # ``use_ef``, EF rows in ``dtype`` too)
+    x, ef, m, q, wd, _ = uplink_inputs(shape, 1234, "cuda",
+                                       mode="group_rate", use_ef=use_ef,
+                                       stream_dtype=dtype)
     wm = m * q[:, None]
+    xf = x.float()
 
     def kernel():
-        return uf.uplink_fused_call(x, m, q, wd, want_ssq=True,
+        return uf.uplink_fused_call(x, m, q, wd, ef=ef, want_ssq=True,
                                     per_coord=False)
 
     def plain():
-        return uplink_ref(x, m, q, wd, want_ssq=True, per_coord=False)
+        return uplink_ref(x, m, q, wd, ef=ef, want_ssq=True,
+                          per_coord=False)
 
     def library():
-        return torch.einsum("cpf,cp->pf", x, wm)
+        return torch.einsum("cpf,cp->pf", xf, wm)
 
     # plain, kernel, kernel, plain: the order cancels drift
-    p1, k1, k2, p2 = (median_ms(f) for f in (plain, kernel, kernel, plain))
-    lib_ms = median_ms(library)
+    reps = 20 if shape[1] > 100 else 100
+    p1, k1, k2, p2 = (median_ms(f, reps=reps)
+                      for f in (plain, kernel, kernel, plain))
+    lib_ms = median_ms(library, reps=reps)
     dev_ms = device_ms(kernel, "uplink_fused_kernel")
     C, P, F = shape
-    agg, _, ssq = kernel()
-    n_bytes = sum(t.nbytes for t in (x, m, q, wd, agg, ssq))
-    # per element x*wm, +, x*x, +; one division per output
-    flops = 4 * C * P * F + P * F
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    agg, ef_out, ssq = kernel()
+    n_bytes = sum(t.nbytes for t in (x, ef, m, q, wd, agg, ef_out, ssq)
+                  if t is not None)
+    # per element x*wm, +, x*x, + (and with EF the re-inject and the EF
+    # product); one division per output
+    flops = (6 if use_ef else 4) * C * P * F + P * F
+    bound_ms, bound_by = bound(n_bytes, flops)
     ms = statistics.median([k1, k2])
     plain_ms = statistics.median([p1, p2])
-    print(f"[time] uplink_fused C={C} P={P} F={F} f32: kernel {k1:.4f}/"
-          f"{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, einsum {lib_ms:.4f} ms "
-          f"(per call, CUDA events, median of 100); kernel device time "
+    print(f"[time] uplink_fused C={C} P={P} F={F} {str(dtype)[6:]}"
+          f"{' EF' if use_ef else ''} ssq: kernel {k1:.4f}/{k2:.4f} ms, "
+          f"plain {p1:.4f}/{p2:.4f} ms, einsum {lib_ms:.4f} ms (per call, "
+          f"CUDA events, median of {reps}); kernel device time "
           + (f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured")
-          + f" (torch.profiler); byte bound {bound_ms:.6f} ms "
+          + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
           f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def bound(n_bytes, flops):
@@ -2345,9 +2659,10 @@ def robust_ops(C, P, F, trim_k):
     return C * P * F * per + 8 * P * F
 
 
-def time_robust(shape, card, *, batched):
+def time_robust(shape, card, *, batched, trim_k=TRIM_K):
     """robust_agg (or its batched entry) at ``shape``, with the
-    defended cell's call: group_rate, no EF, screen + clip + trim."""
+    defended cell's call: group_rate, no EF, screen + clip + trim
+    (``trim_k`` per side; single launches only)."""
     if batched:
         args, trim_k, pc = batched_robust_inputs(shape, 77, "cuda",
                                                  mode="group_rate",
@@ -2356,7 +2671,7 @@ def time_robust(shape, card, *, batched):
         name, eq = "robust_agg_batched", "scpf,scp->spf"
     else:
         pre = robust_inputs(shape, 77, "cuda", mode="group_rate",
-                            use_ef=False, gates_on=True)
+                            use_ef=False, gates_on=True, trim_k=trim_k)
         args, trim_k, pc = pre.args, pre.trim_k, pre.per_coord
         call = ra.robust_agg_call
         name, eq = "robust_agg", "cpf,cp->pf"
@@ -2523,6 +2838,7 @@ def main() -> int:
     card = setup()
     dev = torch.device("cuda")
     max_err = check_kernels(dev)
+    max_err = max(max_err, check_uplink_tails(dev)[1])
     batched_err = check_batched_kernel(dev)
     mask_err = check_mask_kernel(dev)
     launches = run_main_path(card)
@@ -2539,12 +2855,15 @@ def main() -> int:
     fd_launches, fd_err, fd_t = run_serve_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
+    for dtype in (torch.float32, torch.bfloat16):
+        time_uplink(TILE_SHAPE, card, use_ef=True, dtype=dtype)
     batched_t = time_batched_uplink(GRID_SHAPE, card)
     time_batched_uplink(GRID_TILE_SHAPE, card)
     mask_t = time_mask(MASK_SHAPE, card)
     time_mask(MASK_TILE_SHAPE, card)
     robust_t = time_robust(ROBUST_SHAPE, card, batched=False)
     time_robust(ROBUST_TILE_SHAPE, card, batched=False)
+    time_robust(TRIM17_SHAPE, card, batched=False, trim_k=17)
     robust_batched_t = time_robust(ROBUST_GRID_SHAPE, card, batched=True)
     time_robust(ROBUST_GRID_TILE_SHAPE, card, batched=True)
     fec_t = time_fec(FEC_SHAPE, card)

@@ -83,6 +83,7 @@ from repro_torch.data.synthetic import DeviceDataset, stage_on_device
 from repro_torch.kernels.fec_recover import ops as fec_ops
 from repro_torch.kernels.netsim_mask import ops as netsim_ops
 from repro_torch.kernels.robust_agg import ops as robust_ops
+from repro_torch.kernels.robust_agg import robust_agg
 from repro_torch.kernels.uplink_fused import ops as uplink_ops
 from repro_torch.netsim.bandwidth import logbw_round_step
 from repro_torch.netsim.channel import ge_transition_probs
@@ -244,6 +245,22 @@ def _static_key(cfg):
     block loop, never the step)."""
     return dataclasses.astuple(dataclasses.replace(
         static_signature(cfg), n_rounds=0, eval_every=0, engine="scan"))
+
+
+def validate_device_config(cfg, device) -> None:
+    """Raise for a configuration that runs on the CPU but not on the
+    card; called where an engine learns its device, before any round.
+    The defended uplink's kernel screens a packet row (an AND over its
+    floats) inside one CTA of one thread a float, so on the card the
+    packets of a run with faults are at most ``robust_agg.MAX_F`` wide;
+    the plain version takes any width."""
+    if torch.device(device).type == "cuda" and cfg.faults.enabled \
+            and cfg.tra.packet_floats > robust_agg.MAX_F:
+        raise ValueError(
+            f"tra.packet_floats={cfg.tra.packet_floats} with "
+            f"faults.enabled=True runs on the CPU only: the card's robust "
+            f"aggregation screens a packet inside one CTA, at most "
+            f"{robust_agg.MAX_F} floats wide")
 
 
 def validate_round_config(cfg) -> None:
@@ -664,6 +681,7 @@ class RoundScanEngine:
                  packet_loss: Optional[np.ndarray] = None, device):
         self.cfg = cfg
         self.device = torch.device(device)
+        validate_device_config(cfg, self.device)
         self.dd = stage_on_device(data, self.device)
         self.n_clients = int(self.dd.counts.shape[0])
         eligible = np.asarray(eligible, bool)

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import tra as tra_mod
-from repro_torch.core.engine import RoundScanEngine
+from repro_torch.core.engine import (RoundScanEngine,
+                                     validate_device_config)
 from repro_torch.core.fairness import FairnessReport, fairness_report
 from repro_torch.core.lossbudget import LossBudgetConfig
 from repro_torch.core.mlp import mlp_accuracy, mlp_init
@@ -126,6 +127,7 @@ class FederatedServer:
         if cfg.engine not in ("scan", "per_round"):
             raise ValueError(f"unknown engine {cfg.engine!r}")
         self.device = resolve_device(device)
+        validate_device_config(cfg, self.device)
         self.cfg = cfg
         self.data = data
         self.rng = np.random.default_rng(cfg.seed)

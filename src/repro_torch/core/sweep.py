@@ -43,7 +43,8 @@ from repro_torch.core.engine import (CTX_KNOB_FIELDS,
                                      SWEEP_VARYING_TRA_FIELDS, EngineState,
                                      ScenarioCtx, init_engine_state,
                                      make_round_step, scenario_knobs,
-                                     static_signature)
+                                     static_signature,
+                                     validate_device_config)
 from repro_torch.core.lossbudget import LossBudgetConfig
 from repro_torch.core.mlp import mlp_init
 from repro_torch.data.synthetic import (DeviceDataset, FederatedDataset,
@@ -126,6 +127,7 @@ class SweepEngine:
         if not scenarios:
             raise ValueError("empty sweep")
         self.device = dev = resolve_device(device)
+        validate_device_config(cfg, dev)
         self.cfg = cfg
         self.scenarios = list(scenarios)
         self.n_scenarios = len(self.scenarios)

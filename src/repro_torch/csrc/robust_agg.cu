@@ -38,7 +38,9 @@
 // output, are far below the fp32 rate.
 //
 // Design: one CTA per (packet row, scenario), one thread per float of the
-// row (blockDim = F). The clients go in chunks of `chunk` (kChunk, or C if
+// row: blockDim is F rounded up to whole warps (F <= 1024), and the lanes
+// past F copy and compute the row's last float again, which leaves the
+// screen's AND as it is, and store nothing. The clients go in chunks of `chunk` (kChunk, or C if
 // fewer). For a chunk, each thread first issues an asynchronous copy
 // (cp.async) of each of its clients' floats, x and ef, into shared memory,
 // and the first threads copy
@@ -83,6 +85,19 @@
 // barrier: k passes over a staged column cost 2.4 of 5.1 us at C = 12,
 // k = 2 on the H100, the one pass about 0.8.
 //
+// trim_k > 16 (K = kPass): the reference's k passes themselves. The client
+// loop writes each client's trim estimate y into a column (C, F) and its
+// validity into (C,), in shared memory beside the chunk's rows where they
+// fit the opt-in limit, else in a scratch buffer in device memory that the
+// binding allocates (one column per CTA); one barrier after the loop, then
+// each thread runs trim_k passes per side over its own column: pass i takes
+// the (value, index) successor of pass i-1's extraction, as the reference's
+// retirement of first occurrences does, an invalid client reads
+// +-TRIM_BIG, a NaN is never taken, and from the second pass on a value not
+// below TRIM_BIG (above -TRIM_BIG) counts as TRIM_BIG. n and total sum in
+// the client loop as for K > 0, so both paths give the bits of the k-pass
+// extraction.
+//
 // Scenario batching: blockIdx.y is the scenario; each CTA offsets to its
 // scenario and does a single CTA's work in the same order, so one batched
 // launch is bitwise S single launches. No float atomics anywhere: every run
@@ -98,6 +113,8 @@ constexpr float kTrimBig = 3.0e38f;
 constexpr int kChunk = 16;
 constexpr int kMaxWarps = 32;
 constexpr int kMaxDevices = 64;
+// The instance of the k-pass extraction over a column (trim_k > 16).
+constexpr int kPass = -1;
 
 // Copies 4 bytes from device memory to shared memory without waiting.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -112,17 +129,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// K: the trimmed mean's list length (0: no trim; else trim_k <= K).
-template <int K>
+// K: the trimmed mean's list length (0: no trim; kPass: k passes over a
+// column, in shared memory after the chunk's rows or, where `column` is not
+// null, in device memory; else trim_k <= K). TAIL: F % 32 != 0, so that the
+// CTA has lanes past F (probed on the H100: guarding them cost 0.2-0.4 us
+// at the recipe's shape, so whole warps keep the unguarded code).
+template <int K, bool TAIL>
 __global__ void __launch_bounds__(1024) robust_agg_kernel(
     const float* __restrict__ x, const float* __restrict__ ef,
     const float* __restrict__ m, const float* __restrict__ q,
     const float* __restrict__ g, const float* __restrict__ w_pos,
     const float* __restrict__ w_or_den, const float* __restrict__ screen,
     const float* __restrict__ trim_gate, float* __restrict__ agg,
-    float* __restrict__ ef_out, int C, int P, int F, int per_coord,
-    int trim_k, float eps, int chunk) {
-  // the chunk's x rows (chunk, F), then its ef rows (chunk, F) with EF
+    float* __restrict__ ef_out, float* __restrict__ column, int C, int P,
+    int F, int per_coord, int trim_k, float eps, int chunk) {
+  // the chunk's x rows (chunk, F), then its ef rows (chunk, F) with EF;
+  // for kPass then the column's validity (C,) and estimates (C, F)
   extern __shared__ float smem[];
   // per chunk, double-buffered: each warp's "not finite" bits (bit j for
   // client c0 + j) and the chunk's per-client scalars
@@ -131,6 +153,11 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
   __shared__ float s_g[2][kChunk], s_wp[2][kChunk];
   const int p = blockIdx.x;
   const int f = threadIdx.x;
+  // the lanes past F copy and compute the row's last float again (in
+  // their own shared slots: rows are blockDim apart), which leaves the
+  // screen's AND as it is, and store nothing
+  const bool lane_on = !TAIL || f < F;
+  const int ld = TAIL ? blockDim.x : F;  // a chunk row's stride in smem
   const int lane = f & 31;
   const int warp = f >> 5;
   const int n_warps = blockDim.x >> 5;
@@ -143,7 +170,7 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
   }
   m += sc * C * P;
   q += sc * C;
-  if constexpr (K > 0) {
+  if constexpr (K != 0) {
     g += sc * C;
     w_pos += sc * C;
   }
@@ -152,11 +179,21 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
   // the gates and the ready denominator load first, so that their trips
   // to memory overlap the chunk's instead of following the last one
   const bool scr = screen[sc] > 0.5f;
-  const bool trg = K > 0 && trim_gate[sc] > 0.5f;
+  const bool trg = K != 0 && trim_gate[sc] > 0.5f;
   const float den_ready = per_coord ? 0.f : w_or_den[0];
-  const size_t col = (size_t)p * F + f;  // this thread's float in a plane
-  float* xr = smem + f;                  // row j of the chunk: xr[j * F]
-  float* er = smem + (size_t)chunk * F + f;
+  // this thread's float in a plane
+  const size_t col = (size_t)p * F + (TAIL && !lane_on ? F - 1 : f);
+  float* xr = smem + f;  // row j of the chunk: xr[j * ld]
+  float* er = smem + (size_t)chunk * ld + f;
+  // kPass: the column, validity first
+  float* vld = nullptr;
+  float* ys = nullptr;
+  if constexpr (K == kPass) {
+    vld = column != nullptr
+              ? column + ((size_t)sc * P + p) * (size_t)C * (F + 1)
+              : smem + (size_t)chunk * ld * (ef != nullptr ? 2 : 1);
+    ys = vld + C;
+  }
 
   float acc = 0.f;
   float den = 0.f;
@@ -172,18 +209,19 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
   for (int c0 = 0, b = 0; c0 < C; c0 += chunk, b ^= 1) {
     const int nc = C - c0 < chunk ? C - c0 : chunk;
     const float* xg = x + (size_t)c0 * plane + col;
-    for (int j = 0; j < nc; ++j) cp_async4(xr + (size_t)j * F, xg + j * plane);
+    for (int j = 0; j < nc; ++j)
+      cp_async4(xr + (size_t)j * ld, xg + j * plane);
     if (ef != nullptr) {
       const float* eg = ef + (size_t)c0 * plane + col;
       for (int j = 0; j < nc; ++j)
-        cp_async4(er + (size_t)j * F, eg + j * plane);
+        cp_async4(er + (size_t)j * ld, eg + j * plane);
     }
     if (f < nc) {
       const int c = c0 + f;
       cp_async4(&s_m[b][f], m + (size_t)c * P + p);
       cp_async4(&s_q[b][f], q + c);
       if (per_coord) cp_async4(&s_w[b][f], w_or_den + c);
-      if constexpr (K > 0) {
+      if constexpr (K != 0) {
         cp_async4(&s_g[b][f], g + c);
         cp_async4(&s_wp[b][f], w_pos + c);
       }
@@ -191,8 +229,8 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
     cp_async_wait_all();
     unsigned bad = 0u;
     for (int j = 0; j < nc; ++j) {
-      float xe = xr[(size_t)j * F];
-      if (ef != nullptr) xe += er[(size_t)j * F];
+      float xe = xr[(size_t)j * ld];
+      if (ef != nullptr) xe += er[(size_t)j * ld];
       if (!isfinite(xe)) bad |= 1u << j;
     }
     bad = __reduce_or_sync(0xffffffffu, bad);
@@ -202,8 +240,8 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
 
     for (int j = 0; j < nc; ++j) {
       const int c = c0 + j;
-      float xe = xr[(size_t)j * F];
-      if (ef != nullptr) xe += er[(size_t)j * F];
+      float xe = xr[(size_t)j * ld];
+      if (ef != nullptr) xe += er[(size_t)j * ld];
       const float mc = s_m[b][j];
       const bool fin = isfinite(xe);
       const bool ok = !((bad >> j) & 1u);
@@ -212,8 +250,16 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
       const float wm = me * s_q[b][j];
       if (per_coord) den += me * s_w[b][j];
       acc += xs * wm;
-      if (ef != nullptr) ef_out[(size_t)c * plane + col] = xs * (1.f - mc);
-      if constexpr (K > 0) {
+      if (ef != nullptr && lane_on)
+        ef_out[(size_t)c * plane + col] = xs * (1.f - mc);
+      if constexpr (K == kPass) {
+        const float y = xs * s_g[b][j];
+        const float v = me * s_wp[b][j];
+        n += v;
+        total += y * v;
+        if (lane_on) ys[(size_t)c * F + f] = y;
+        if (f == 0) vld[c] = v;
+      } else if constexpr (K > 0) {
         const float y = xs * s_g[b][j];
         const float v = me * s_wp[b][j];
         n += v;
@@ -238,7 +284,54 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
   const float d = per_coord ? (den < eps ? eps : den) : den_ready;
   float out = acc / d;
 
-  if constexpr (K > 0) {
+  if constexpr (K == kPass) {
+    __syncthreads();  // vld was written by thread 0
+    if (lane_on) {
+      float bot = 0.f;
+      float top = 0.f;
+      // the last extracted (value, client) of each side
+      float lo_v = -INFINITY, hi_v = INFINITY;
+      int lo_c = -1, hi_c = -1;
+      for (int pass = 0; pass < trim_k; ++pass) {
+        float bv = kTrimBig;
+        int bc = -1;
+        for (int c = 0; c < C; ++c) {
+          const float v = vld[c] > 0.f ? ys[(size_t)c * F + f] : kTrimBig;
+          const bool after = v > lo_v || (v == lo_v && c > lo_c);
+          if (after && (bc < 0 || v < bv)) {
+            bv = v;
+            bc = c;
+          }
+        }
+        if (bc >= 0) {
+          lo_v = bv;
+          lo_c = bc;
+        }
+        bot += (pass > 0 && !(bv < kTrimBig)) ? kTrimBig : bv;
+
+        bv = -kTrimBig;
+        bc = -1;
+        for (int c = 0; c < C; ++c) {
+          const float v = vld[c] > 0.f ? ys[(size_t)c * F + f] : -kTrimBig;
+          const bool after = v < hi_v || (v == hi_v && c > hi_c);
+          if (after && (bc < 0 || v > bv)) {
+            bv = v;
+            bc = c;
+          }
+        }
+        if (bc >= 0) {
+          hi_v = bv;
+          hi_c = bc;
+        }
+        top += (pass > 0 && !(bv > -kTrimBig)) ? -kTrimBig : bv;
+      }
+      const float two_k = 2.f * (float)trim_k;
+      const float cnt = n - two_k < 1.f ? 1.f : n - two_k;
+      const float trimmed = n > two_k ? (total - top - bot) / cnt
+                                      : total / (n < 1.f ? 1.f : n);
+      if (trg) out = trimmed;
+    }
+  } else if constexpr (K > 0) {
     // pass i's value: slot i; from pass 1 on capped at +-TRIM_BIG, which a
     // missing slot (+-inf) reads too. Where a valid value is NaN the
     // reference takes it in no pass, but total is NaN, and so is the
@@ -258,13 +351,20 @@ __global__ void __launch_bounds__(1024) robust_agg_kernel(
                                     : total / (n < 1.f ? 1.f : n);
     if (trg) out = trimmed;
   }
-  agg[col] = out;
+  if (lane_on) agg[col] = out;
 }
 
-// The dynamic shared memory each instance (slots 0, 1, 2, 4, 8, 16) was
-// opted into on each device, so that cudaFuncSetAttribute runs once per
-// process, device, instance and larger size.
-int g_smem_opt[kMaxDevices][6];
+// The dynamic shared memory each instance (slots 0, 1, 2, 4, 8, 16 and
+// kPass, without and with lanes past F) was opted into on each device, so
+// that cudaFuncSetAttribute runs once per process, device, instance and
+// larger size.
+int g_smem_opt[kMaxDevices][7][2];
+
+// The instance for `slots` list slots, with or without lanes past F.
+template <int K>
+decltype(&robust_agg_kernel<0, false>) instance(bool tail) {
+  return tail ? &robust_agg_kernel<K, true> : &robust_agg_kernel<K, false>;
+}
 
 
 }  // namespace
@@ -272,32 +372,40 @@ int g_smem_opt[kMaxDevices][6];
 extern "C" {
 
 // Launches the robust aggregation of S scenarios on `stream`, one CTA per
-// (packet row, scenario) and one thread per float of the row, the clients in
-// chunks of `chunk` (1..kChunk), with `smem` bytes of dynamic shared memory
-// (chunk * F floats, twice that with EF) and the trim's lists `slots` long
-// (0 without the trim, else 1, 2, 4, 8 or 16 >= trim_k): the binding's
-// plan. ef/ef_out are both null or both set; g and w_pos are read only when
+// (packet row, scenario) of `threads` threads (F rounded up to whole warps,
+// one a float), the clients in chunks of `chunk` (1..kChunk), with `smem`
+// bytes of dynamic shared memory (chunk * threads floats, twice that with
+// EF, and with the k-pass column in shared memory C * (F + 1) more) and
+// the trim's lists `slots` long (0 without the trim, 1, 2, 4, 8 or 16 >=
+// trim_k, or kPass for the k passes over a column: in `column`, S * P * C
+// * (F + 1) floats of device memory, where it is not null): the binding's
+// plan.
+// ef/ef_out are both null or both set; g and w_pos are read only when
 // trim_k > 0. Returns the first CUDA error, or cudaGetLastError() after the
 // launch.
 int robust_agg_launch(const void* x, const void* ef, const void* m,
                       const void* q, const void* g, const void* w_pos,
                       const void* w_or_den, const void* screen,
-                      const void* trim_gate, void* agg, void* ef_out, int S,
-                      int C, int P, int F, int per_coord, int trim_k,
-                      float eps, int chunk, int slots, int smem,
-                      int device, void* stream) {
-  decltype(&robust_agg_kernel<0>) kernel;
+                      const void* trim_gate, void* agg, void* ef_out,
+                      void* column, int S, int C, int P, int F,
+                      int per_coord, int trim_k, float eps, int chunk,
+                      int slots, int smem, int threads, int device,
+                      void* stream) {
+  const bool tail = F % 32 != 0;
+  decltype(&robust_agg_kernel<0, false>) kernel;
   int row;  // the instance's row in g_smem_opt
   switch (slots) {
-    case 0: kernel = robust_agg_kernel<0>; row = 0; break;
-    case 1: kernel = robust_agg_kernel<1>; row = 1; break;
-    case 2: kernel = robust_agg_kernel<2>; row = 2; break;
-    case 4: kernel = robust_agg_kernel<4>; row = 3; break;
-    case 8: kernel = robust_agg_kernel<8>; row = 4; break;
-    case 16: kernel = robust_agg_kernel<16>; row = 5; break;
+    case 0: kernel = instance<0>(tail); row = 0; break;
+    case 1: kernel = instance<1>(tail); row = 1; break;
+    case 2: kernel = instance<2>(tail); row = 2; break;
+    case 4: kernel = instance<4>(tail); row = 3; break;
+    case 8: kernel = instance<8>(tail); row = 4; break;
+    case 16: kernel = instance<16>(tail); row = 5; break;
+    case kPass: kernel = instance<kPass>(tail); row = 6; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  if ((slots == 0) != (trim_k == 0) || trim_k > slots)
+  if ((slots == 0) != (trim_k == 0) || (slots > 0 && trim_k > slots) ||
+      threads < F || threads % 32 || threads > 1024)
     return (int)cudaErrorInvalidValue;
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
@@ -306,7 +414,8 @@ int robust_agg_launch(const void* x, const void* ef, const void* m,
     err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
   }
-  int* opted = device < kMaxDevices ? &g_smem_opt[device][row] : nullptr;
+  int* opted =
+      device < kMaxDevices ? &g_smem_opt[device][row][tail] : nullptr;
   if (smem > 48 * 1024 && (opted == nullptr || smem > *opted)) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -315,13 +424,14 @@ int robust_agg_launch(const void* x, const void* ef, const void* m,
     if (opted != nullptr) *opted = smem;
   }
   const dim3 grid(P, S);
-  kernel<<<grid, F, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(ef),
       static_cast<const float*>(m), static_cast<const float*>(q),
       static_cast<const float*>(g), static_cast<const float*>(w_pos),
       static_cast<const float*>(w_or_den), static_cast<const float*>(screen),
       static_cast<const float*>(trim_gate), static_cast<float*>(agg),
-      static_cast<float*>(ef_out), C, P, F, per_coord, trim_k, eps, chunk);
+      static_cast<float*>(ef_out), static_cast<float*>(column), C, P, F,
+      per_coord, trim_k, eps, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,11 @@ BATCHED_LAUNCHES = 0
 
 CHUNK = 16                  # the most clients a chunk (kChunk in the .cu)
 TRIM_SLOTS = (1, 2, 4, 8, 16)   # the kernel's trim list lengths (its K)
+PASSES = -1                 # slots of the k-pass instance (kPass in the .cu)
+MAX_F = 1024                # the widest packet: one CTA, a thread a float
+# dynamic shared memory a CTA may opt into on an H100 (232,448 bytes),
+# beside the kernel's 896 static bytes
+SMEM_LIMIT = 232448 - 896
 _OPERANDS = ("x", "m", "q", "w_or_den", "screen", "trim_gate", "ef", "g",
              "w_pos")
 
@@ -40,26 +45,38 @@ class Plan(NamedTuple):
     """Launch geometry of one call, beside a CTA per (packet row,
     scenario) of one thread per float."""
     chunk: int      # clients whose loads are in flight together
-    slots: int      # the trim's list length: 0, or trim_k rounded up
-    smem: int       # dynamic shared memory, bytes: the chunk's rows
+    slots: int      # the trim: 0 off, trim_k rounded up to a list length
+                    # (<= 16), or PASSES for trim_k passes over a column
+    smem: int       # dynamic shared memory, bytes: the chunk's rows (a
+                    # float a thread), and the k-pass column where it
+                    # fits beside them
+    threads: int    # F rounded up to whole warps
+    column: bool    # the k-pass column lies in device memory instead
 
 
 @functools.lru_cache(maxsize=None)
 def plan(S: int, C: int, P: int, F: int, trim_k: int, ef: bool) -> Plan:
     """The kernel's geometry for S scenarios of (C, P, F) uploads, with
     or without EF; raises ``ValueError`` on what it cannot take."""
-    if F % 32 or not 32 <= F <= 1024 or min(S, C, P) < 1:
+    if not 1 <= F <= MAX_F or min(S, C, P) < 1:
         raise ValueError(f"unsupported packet shape S={S}, C={C}, P={P}, "
-                         f"F={F}: S, C, P > 0 and F a multiple of 32 in "
-                         f"[32, 1024]")
+                         f"F={F}: S, C, P > 0 and F in [1, {MAX_F}]")
     if S > 65535:
         raise ValueError(f"at most 65535 scenarios in one launch, not {S}")
-    if not 0 <= trim_k <= TRIM_SLOTS[-1]:
-        raise ValueError(f"trim_k must be in [0, {TRIM_SLOTS[-1]}], not "
-                         f"{trim_k}")
-    slots = next(k for k in TRIM_SLOTS if k >= trim_k) if trim_k else 0
+    if trim_k < 0:
+        raise ValueError(f"trim_k must be >= 0, not {trim_k}")
     chunk = min(CHUNK, C)
-    return Plan(chunk, slots, chunk * F * 4 * (2 if ef else 1))
+    threads = -(-F // 32) * 32
+    rows = chunk * threads * 4 * (2 if ef else 1)
+    if trim_k <= TRIM_SLOTS[-1]:
+        slots = next(k for k in TRIM_SLOTS if k >= trim_k) if trim_k else 0
+        return Plan(chunk, slots, rows, threads, False)
+    # trim_k > 16: k passes over a (C, F + 1) column, in shared memory
+    # where it fits beside the chunk's rows
+    col = C * (F + 1) * 4
+    if rows + col <= SMEM_LIMIT:
+        return Plan(chunk, PASSES, rows + col, threads, False)
+    return Plan(chunk, PASSES, rows, threads, True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,9 +84,9 @@ def _lib():
     lib = _build.load("robust_agg")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.robust_agg_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, i32, i32,
-        ptr]
+        i32, ptr]
     lib.robust_agg_launch.restype = i32
     lib.robust_agg_error_string.argtypes = [i32]
     lib.robust_agg_error_string.restype = ctypes.c_char_p
@@ -134,6 +151,8 @@ def _launch(lead, x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos,
                 _check(name, t, shape, x.device)
     agg = x.new_empty((*lead, P, F))
     ef_out = None if ef is None else torch.empty_like(ef)
+    # the k-pass column of each CTA, where it does not fit shared memory
+    column = x.new_empty((S, P, C, F + 1)) if pl.column else None
     lib = _lib()
     # the current stream's handle, without building a Stream object
     stream = torch._C._cuda_getCurrentRawStream(index)
@@ -146,9 +165,10 @@ def _launch(lead, x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos,
         q.data_ptr(), g.data_ptr() if trim else None,
         w_pos.data_ptr() if trim else None, w_or_den.data_ptr(),
         screen.data_ptr(), trim_gate.data_ptr(), agg.data_ptr(),
-        None if ef_out is None else ef_out.data_ptr(), S, C, P, F,
+        None if ef_out is None else ef_out.data_ptr(),
+        None if column is None else column.data_ptr(), S, C, P, F,
         int(per_coord), trim_k, DENOM_EPS, pl.chunk, pl.slots, pl.smem,
-        index, stream)
+        pl.threads, index, stream)
     if err:
         raise RuntimeError("robust_agg kernel launch failed: "
                            + lib.robust_agg_error_string(err).decode())
@@ -159,8 +179,8 @@ def robust_agg_call(x, m, q, w_or_den, screen, trim_gate, *, ef=None,
                     g=None, w_pos=None, trim_k: int = 0, per_coord: bool):
     """One launch of the robust-aggregation kernel for one scenario.
 
-    x: (C, P, F) f32 uploads after fault injection, on the card, F a
-    multiple of 32 up to 1024; ef: matching tensor or None; m: (C, P)
+    x: (C, P, F) f32 uploads after fault injection, on the card, F in
+    [1, 1024], any ``trim_k >= 0``; ef: matching tensor or None; m: (C, P)
     delivery mask; q: (C,) debias scales with the clip factor folded in;
     ``w_or_den``: raw weights (C,) when ``per_coord``, else the ready
     scalar denominator (); ``screen`` / ``trim_gate``: () f32 gates;

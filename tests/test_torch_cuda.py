@@ -172,6 +172,51 @@ def test_cuda_batched_kernel_equals_single_launches(dev, dtype, per_coord,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 36, 255), (10, 36, 20),
+                                   (3, 2, 20000), (10, 36, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("per_coord", [False, True])
+@pytest.mark.parametrize("shift", [False, True])
+def test_cuda_uplink_packet_widths_are_the_parent_expressions(
+        dev, shape, dtype, per_coord, shift):
+    """Packet widths off a multiple of 4 and 32, a row over several CTAs
+    (F = 20,000), and rows one element past an aligned address: with
+    scales that make every product exact, agg and EF bitwise the
+    parent's expressions over the clients in index order (xe = x + ef,
+    acc += xe * m q, den += m w, ef_out = xe (1 - m) in the stream
+    dtype); ssq within rtol 1e-5 of the plain version."""
+    C_, P_, F_ = shape
+    rng = np.random.default_rng(sum(shape))
+    x = torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                     device=dev).to(dtype)
+    ef = torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                      device=dev).to(dtype)
+    if shift:
+        x, ef = _shifted(x), _shifted(ef)
+    m = torch.tensor(rng.random((C_, P_)) > 0.4, dtype=torch.float32,
+                     device=dev)
+    q = _powers_of_two(rng, (C_,), dev)
+    w = _powers_of_two(rng, (C_,), dev)
+    wd = w if per_coord else w.sum()
+    agg, ef_out, ssq = t_uf.uplink_fused_call(x, m, q, wd, ef=ef,
+                                              want_ssq=True,
+                                              per_coord=per_coord)
+    torch.cuda.synchronize()
+    acc = torch.zeros((P_, F_), device=dev)
+    den = torch.zeros((P_,), device=dev)
+    for c in range(C_):
+        xe = x[c].float() + ef[c].float()
+        acc = acc + xe * (m[c] * q[c])[:, None]
+        den = den + m[c] * w[c]
+        assert torch.equal(ef_out[c], (xe * (1.0 - m[c])[:, None]).to(dtype))
+    d = torch.clamp(den, min=DENOM_EPS)[:, None] if per_coord else wd
+    assert torch.equal(agg, acc / d)
+    r_ssq = uplink_ref(x, m, q, wd, ef=ef, want_ssq=True,
+                       per_coord=per_coord)[2]
+    torch.testing.assert_close(ssq.sum(-1), r_ssq, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R,P_", [(270, 36), (4096, 1024), (7, 129)])
 def test_cuda_netsim_mask_matches_plain(dev, R, P_):
     rng = np.random.default_rng(R + P_)
@@ -401,6 +446,135 @@ def test_cuda_robust_kernel_chunks_match_plain(dev, C_, P_, F_, trim_k,
             assert _same_bits(e, b_ef[i])
 
 
+def _kpass_trim(y, valid, k):
+    """The reference's k-pass trimmed mean in numpy float32: pass i takes
+    the (value, index) successor of pass i-1's extraction, an invalid
+    client reading +-TRIM_BIG, a NaN never taken, values past TRIM_BIG
+    capped from the second pass on; n <= 2k falls back to the mean."""
+    big = np.float32(3.0e38)
+    C_, P_, F_ = y.shape
+    out = np.zeros((P_, F_), np.float32)
+    for p in range(P_):
+        v = valid[:, p]
+        n = total = np.float32(0)
+        for c in range(C_):
+            n += v[c]
+            total += y[c, p] * v[c]
+        for f in range(F_):
+            sums = []
+            for sign in (1, -1):
+                last, acc = (-sign * np.inf, -1), np.float32(0)
+                for i in range(k):
+                    best = None
+                    for c in range(C_):
+                        val = y[c, p, f] if v[c] > 0 else sign * big
+                        after = sign * val > sign * last[0] or (
+                            val == last[0] and c > last[1])
+                        if after and (best is None
+                                      or sign * val < sign * best[0]):
+                            best = (val, c)
+                    bv = sign * big if best is None else best[0]
+                    last = last if best is None else best
+                    capped = not sign * bv < big
+                    acc += sign * big if i > 0 and capped else bv
+                sums.append(acc)
+            two_k = np.float32(2 * k)
+            out[p, f] = ((total[f] - sums[1] - sums[0])
+                         / max(n - two_k, np.float32(1))) if n > two_k \
+                else total[f] / max(n, np.float32(1))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C_,k,screen", [(40, 17, 1.0), (40, 17, 0.0),
+                                         (40, 24, 1.0), (14, 6, 1.0)])
+def test_cuda_robust_trim_passes_match_the_k_pass_extraction(dev, C_, k,
+                                                             screen):
+    """trim_k past the kernel's lists (the k passes over a column) and
+    C = 14, k = 6 (n - 2k about 1): bitwise the reference's k-pass
+    extraction, NaN by position; the kernel's estimates y and
+    validities are the screen's expressions, each one rounding."""
+    P_, F_ = 3, 32
+    t = _robust_edge(C_, P_, F_, C_ + k, dev, per_coord=False,
+                     gates=(screen, 1.0))
+    t["m"] = (torch.rand((C_, P_), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             k)) > 0.05).float()
+    agg, _ = t_ra.robust_agg_call(t["x"], t["m"], t["q"], t["wd"], t["scr"],
+                                  t["trg"], g=t["g"], w_pos=t["w_pos"],
+                                  trim_k=k, per_coord=False)
+    torch.cuda.synchronize()
+    x, m, g, w_pos = (t[n].cpu().numpy() for n in ("x", "m", "g", "w_pos"))
+    fin = np.isfinite(x)
+    if screen:
+        x = np.where(fin, x, np.float32(0))
+        m = (m * fin.all(-1)).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = _kpass_trim((x * g[:, None, None]).astype(np.float32),
+                           (m * w_pos[:, None]).astype(np.float32), k)
+    assert _same_bits(agg.cpu(), torch.from_numpy(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ef", [False, True])
+def test_cuda_robust_trim_column_in_device_memory(dev, monkeypatch,
+                                                  use_ef):
+    """The k passes over a column in device memory (where C (F + 1)
+    floats outgrow shared memory) give the bits of the same passes over
+    the column in shared memory: the plan is forced to the device-memory
+    column at C = 40, trim_k = 17, and both launches compared."""
+    t = _robust_edge(40, 3, 64, 5, dev, per_coord=False, gates=(1.0, 1.0))
+    kw = dict(ef=t["ef"] if use_ef else None, g=t["g"], w_pos=t["w_pos"],
+              trim_k=17, per_coord=False)
+    args = (t["x"], t["m"], t["q"], t["wd"], t["scr"], t["trg"])
+    in_smem, e_smem = t_ra.robust_agg_call(*args, **kw)
+    base = t_ra.plan
+    pl = base(1, 40, 3, 64, 17, use_ef)
+    assert pl.slots == t_ra.PASSES and not pl.column
+    monkeypatch.setattr(t_ra, "plan", lambda *a: base(*a)._replace(
+        smem=pl.smem - 40 * 65 * 4, column=True))
+    in_dev, e_dev = t_ra.robust_agg_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(in_dev, in_smem)
+    if use_ef:
+        assert _same_bits(e_dev, e_smem)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F_", [1, 20, 100, 255, 1024])
+@pytest.mark.parametrize("trim_k", [0, 2, 17])
+def test_cuda_robust_packet_widths_match_plain(dev, F_, trim_k):
+    """Packet widths off a multiple of 32 and F = 1024 (the lanes past F
+    idle), the trim on the lists and past them (at C = 40, where 30% of
+    packets lost leave n <= 2k): agg within rtol 1e-6 /
+    atol 1e-6 of the plain version with equal NaN positions, EF
+    bitwise; with the gates off and finite inputs, bitwise the uplink
+    kernel."""
+    C_ = 40 if trim_k > 16 else 12
+    t = _robust_edge(C_, 4, F_ + 4, F_, dev, per_coord=False,
+                     gates=(1.0, 1.0))
+    for k in ("x", "ef"):
+        t[k] = t[k][..., :F_].contiguous()
+    kw = dict(ef=t["ef"], g=t["g"], w_pos=t["w_pos"], trim_k=trim_k,
+              per_coord=False)
+    agg, ef_out = t_ra.robust_agg_call(t["x"], t["m"], t["q"], t["wd"],
+                                       t["scr"], t["trg"], **kw)
+    r_agg, r_ef, _ = robust_ref(t["x"], t["m"], t["q"], t["wd"],
+                                screen=t["scr"], trim_gate=t["trg"], **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(agg, r_agg, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+    assert bool(torch.isfinite(agg).all())
+    assert _same_bits(ef_out, r_ef)
+    xf = torch.nan_to_num(t["x"], nan=0.5, posinf=0.5)
+    off = torch.zeros((), device=dev)
+    a0, e0 = t_ra.robust_agg_call(xf, t["m"], t["q"], t["wd"], off, off,
+                                  **kw)
+    a1, e1, _ = t_uf.uplink_fused_call(xf, t["m"], t["q"], t["wd"],
+                                       ef=t["ef"], per_coord=False)
+    assert torch.equal(a0, a1) and torch.equal(e0, e1)
+
+
 def _robust_operands(dev):
     t = _robust_edge(5, 3, 64, 3, dev, per_coord=False, gates=(1.0, 1.0))
     return dict(x=t["x"], m=t["m"], q=t["q"], w_or_den=t["wd"],
@@ -429,9 +603,13 @@ def test_cuda_robust_binding_names_each_fault(dev, name):
     faults = [(good.cpu(), ValueError, f"CUDA tensors only, and {name} "),
               (good.double(), TypeError, f"{name} must be float32")]
     if good.dim():
-        shape_msg = "unsupported packet shape" if name == "x" \
-            else f"{name} must have shape"
-        faults += [(good[..., :1], ValueError, shape_msg),
+        # x's shape sets the others': a narrower x leaves ef the misfit
+        narrow = good[..., :1]
+        if name == "x":
+            narrow, shape_msg = narrow.contiguous(), "ef must have shape"
+        else:
+            shape_msg = f"{name} must have shape"
+        faults += [(narrow, ValueError, shape_msg),
                    (torch.stack([good, good], -1)[..., 0], ValueError,
                     f"{name} must be contiguous")]
     for bad, exc, msg in faults:
@@ -701,6 +879,52 @@ def test_cuda_tra_agg_matches_plain(dev, shape, mode):
     assert t_ta.LAUNCHES == before + 1
     torch.testing.assert_close(out, tra_agg_ref(x, m, c["w"]), rtol=1e-6,
                                atol=1e-6)
+
+
+def _shifted(t):
+    """A copy of ``t`` one element past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _powers_of_two(rng, shape, dev):
+    """Weights whose products with 0/1 masks and with the uploads are
+    exact, so that a sum's bits depend on its order alone, and a plain
+    loop in index order is the kernel's expressions bit for bit."""
+    return torch.tensor(2.0 ** rng.integers(-2, 3, size=shape),
+                        dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 1024, 255), (16, 1024, 256),
+                                   (4, 3, 2500), (5, 40, 1)])
+@pytest.mark.parametrize("shift", [False, True])
+def test_cuda_tra_agg_packet_widths_match_plain(dev, shape, shift):
+    """An odd F at the reference's bench shape, a row past one CTA's
+    tile, F = 1, and rows one element past an aligned address (the
+    scalar loads): within rtol 1e-6 / atol 1e-6 of the plain version;
+    and, with weights that make every product exact, bitwise the
+    parent's expressions summed over the clients in index order (wm =
+    m * w, num += wm * x, den += wm)."""
+    c = _tra_case(*shape, sum(shape), dev)
+    x, m = c["x"], c["m"]
+    w = _powers_of_two(np.random.default_rng(sum(shape)), shape[:1], dev)
+    if shift:
+        x = _shifted(x)
+    out = t_ta.tra_agg_call(x, m, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tra_agg_ref(x, m, w), rtol=1e-6,
+                               atol=1e-6)
+    num = torch.zeros(shape[1:], device=dev)
+    den = torch.zeros(shape[1:2], device=dev)
+    for i in range(shape[0]):
+        wm = m[i] * w[i]
+        num = num + wm[:, None] * x[i]
+        den = den + wm
+    want = num / torch.clamp(den, min=DENOM_EPS)[:, None]
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

@@ -440,3 +440,82 @@ def test_fault_fields_default_off():
         dataclasses.asdict(JFault()).keys()
     assert dataclasses.asdict(TDefense()).keys() == \
         dataclasses.asdict(JDefense()).keys()
+
+
+# ---------------------------------------------------------------------------
+# the trim past the card kernel's lists; the card's packet-width limit
+# ---------------------------------------------------------------------------
+def _trim17_cfg(pkg, rounds=2):
+    """C = 40 of 50 clients, TRA at 2% loss (n > 2k in most packets),
+    faults on, screen + clip 20 + trim 17: on the card the k passes over
+    a column, past the kernel's 16-slot lists."""
+    Cfg, Tra, Flt, Dfn = ((JConfig, JTRA, JFault, JDefense) if pkg == "j"
+                          else (TConfig, TTRA, TFault, TDefense))
+    return Cfg(algo="fedavg", n_rounds=rounds, clients_per_round=40,
+               local_steps=2, batch_size=8, lr=0.1, eval_every=10 ** 6,
+               seed=3, tra=Tra(enabled=True, loss_rate=0.02),
+               faults=Flt(enabled=True, corrupt_rate=0.1, corrupt_scale=0.5,
+                          fail_rate=0.1),
+               defense=Dfn(screen=True, clip=True, clip_norm=20.0, trim=True,
+                           trim_k=17))
+
+
+def test_defended_trim17_engine_matches_reference_kernel(monkeypatch):
+    """DefenseConfig(trim=True, trim_k=17) at C = 40: the port's engine
+    (its plain version on the CPU) against the reference's with its
+    Pallas robust kernel in interpret mode, 2 rounds from the
+    reference's state: cohorts and quarantine counts bitwise, losses
+    rtol 1e-5, params rtol 1e-4 / atol 1e-5 (the module's engine
+    tolerances)."""
+    monkeypatch.setenv("REPRO_ROBUST_IMPL", "kernel")
+    n = 50
+    speeds, loss = np.linspace(0.5, 20.0, n), np.full(n, 0.05)
+    jdata = j_generate(np.random.default_rng(5), n_clients=n, alpha=0.5,
+                       beta=0.5)
+    tdata = t_generate(np.random.default_rng(5), n_clients=n, alpha=0.5,
+                       beta=0.5)
+    je = JSweep.from_configs([_trim17_cfg("j")], jdata, JNets(speeds, loss))
+    j0 = je.init_states()
+    t0 = engine_state_from_jax(j0, "cpu")
+    jst, jlogs = je.run_block(j0, 0, 2)
+    te = TSweep.from_configs([_trim17_cfg("t")], tdata, TNets(speeds, loss),
+                             device="cpu")
+    tst, tlogs = te.run_block(t0, 0, 2)
+    np.testing.assert_array_equal(tlogs["ids"], jlogs["ids"])
+    np.testing.assert_array_equal(tlogs["quarantine"], jlogs["quarantine"])
+    assert tlogs["quarantine"].sum() > 0
+    np.testing.assert_allclose(tlogs["loss"], jlogs["loss"], rtol=1e-5)
+    np.testing.assert_allclose(_vec(tst.params, 0), _vec(jst.params, 0),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _wide_cfg(F, faults):
+    return dataclasses.replace(
+        _cfg(rounds=1, faults=dict(enabled=faults)),
+        tra=TTRA(enabled=True, loss_rate=0.3, packet_floats=F))
+
+
+@pytest.mark.parametrize("F,faults,refused", [
+    (2048, True, True), (1025, True, True), (1024, True, False),
+    (2048, False, False)])
+def test_card_refuses_wide_defended_packets_before_the_first_round(
+        inputs, F, faults, refused):
+    """The card's robust kernel screens a packet inside one CTA, so a run
+    with faults and packets wider than 1,024 floats fails on a CUDA
+    device with a ValueError as the engine is built, before any round
+    (the device here is a stand-in: the check comes before anything is
+    staged on it); the CPU runs it."""
+    from repro_torch.core.engine import validate_device_config
+    cfg = _wide_cfg(F, faults)
+    if refused:
+        with pytest.raises(ValueError, match=f"packet_floats={F}"):
+            TServer(cfg, inputs["tdata"], inputs["tnets"], device="cuda")
+        with pytest.raises(ValueError, match=f"packet_floats={F}"):
+            TSweep.from_configs([cfg], inputs["tdata"], inputs["tnets"],
+                                device="cuda")
+    else:
+        validate_device_config(cfg, "cuda")
+    validate_device_config(cfg, "cpu")
+    hist = TServer(cfg, inputs["tdata"], inputs["tnets"],
+                   device="cpu").run()
+    assert len(hist) == 1 and np.isfinite(hist[0].train_loss)

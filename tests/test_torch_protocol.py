@@ -63,6 +63,7 @@ from repro_torch.kernels.qfed_reweight import ops as t_qr_ops
 from repro_torch.kernels.qfed_reweight.qfed_reweight import \
     qfed_reweight_call as t_qr_call
 from repro_torch.kernels.tra_agg import ops as t_ta_ops
+from repro_torch.kernels.tra_agg import tra_agg as t_ta
 from repro_torch.kernels.tra_agg.tra_agg import tra_agg_call as t_ta_call
 from repro_torch.kernels.uplink_fused import ops as uplink_ops
 from repro_torch.network import packets as t_pk
@@ -548,3 +549,93 @@ def test_packet_mask_check_names_the_operand():
         t_pm._check("x", x.t(), (8, 4), dt, x.device)
     t_pm._check("x", x.bfloat16(), (4, 8), dt, x.device)
     assert t_pm._check.__module__ == t_pm.__name__
+
+
+@pytest.mark.parametrize("C,P,F", [(5, 16, 255), (3, 8, 33)])
+def test_tra_agg_odd_packet_width_matches_reference_kernel(C, P, F):
+    """Packet widths off a multiple of 32: the port's op against the
+    reference's interpret-mode Pallas kernel, at the tolerance of
+    ``test_tra_agg_matches_reference_kernel``."""
+    x, m, w = _agg_case(C, P, F, C * P + F)
+    ref = tra_agg_call(jnp.asarray(x), jnp.asarray(m), jnp.asarray(w),
+                       block_p=8, interpret=True)
+    out = t_ta_ops.tra_agg_op(*map(torch.from_numpy, (x, m, w)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("name", ["x", "mask", "w"])
+def test_tra_agg_refuses_a_cpu_operand_first(batched, name):
+    """A CPU tensor in any operand of either entry raises the CUDA
+    refusal, named, before the counter moves and before the library is
+    built or loaded, whatever else is wrong with it."""
+    ops = {k: _OnCard() for k in ("x", "mask", "w")}
+    ops[name] = torch.zeros(3, dtype=torch.float64)
+    entry = t_ta.tra_agg_batched_call if batched else t_ta.tra_agg_call
+    before = (t_ta.LAUNCHES, t_ta._lib.cache_info())
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        entry(ops["x"], ops["mask"], ops["w"])
+    assert (t_ta.LAUNCHES, t_ta._lib.cache_info()) == before
+
+
+def test_tra_agg_check_names_the_operand():
+    """The per-operand fallback of the one-pass check: device (naming
+    CUDA), dtype, shape, contiguity, in that order; the binding keeps
+    its own check, apart from the uplink kernel's binding."""
+    card = torch.device("cuda", 0)
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="x must be a CUDA tensor on "
+                                         "cuda:0, not on cpu"):
+        t_ta._check("x", x, (4, 8), card)
+    with pytest.raises(TypeError, match="w must be float32"):
+        t_ta._check("w", x.double(), (4, 8), x.device)
+    with pytest.raises(ValueError, match=r"mask must have shape \(4,\)"):
+        t_ta._check("mask", x, (4,), x.device)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        t_ta._check("x", x.t(), (8, 4), x.device)
+    assert t_ta._check.__module__ == t_ta.__name__
+
+
+def _ta_plan(rows, tiles, threads, C=10):
+    chunk = min(t_ta.CHUNK, C, t_ta.SMEM_BUDGET // (16 * threads))
+    return t_ta.Plan(rows, tiles, threads, chunk, chunk * 16 * threads)
+
+
+@pytest.mark.parametrize("S,C,P,F,want", [
+    (1, 10, 36, 256, _ta_plan(1, 1, 64)),        # the host loop's call
+    (1, 16, 1024, 256, _ta_plan(1, 1, 64, 16)),  # the reference's bench
+    (4, 10, 36, 256, _ta_plan(1, 1, 64)),
+    (1, 3, 8, 128, _ta_plan(2, 1, 64, 3)),
+    (1, 10, 36, 255, _ta_plan(1, 1, 64)),
+    (1, 10, 36, 1, _ta_plan(32, 1, 32)),
+    (1, 10, 5, 1, _ta_plan(5, 1, 32)),
+    (1, 10, 36, 100, _ta_plan(2, 1, 64)),
+    (1, 40, 36, 1024, _ta_plan(1, 1, 256, 40)),
+    (1, 10, 36, 20000, _ta_plan(1, 20, 256))])
+def test_tra_agg_plan_covers_any_packet_width(S, C, P, F, want):
+    """Rows under 256 floats share a CTA (at most MAX_ROWS), rows past
+    TILE floats are cut into tiles; each thread over 4 floats, whole
+    warps, at most TILE / 4 threads."""
+    pl = t_ta.plan(S, C, P, F)
+    assert pl == want
+    TILE = t_ta.TILE
+    span = pl.rows * F if pl.tiles == 1 else TILE
+    assert pl.threads % 32 == 0 and 4 * pl.threads >= span
+    assert pl.threads <= TILE // 4 and pl.rows <= t_ta.MAX_ROWS
+    assert pl.tiles * TILE >= F
+    assert 1 <= pl.chunk <= t_ta.CHUNK and pl.smem <= t_ta.SMEM_BUDGET
+
+
+def test_tra_agg_plan_constants_follow_the_kernel_source():
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "tra_agg.cu").read_text()
+    assert f"constexpr int kMaxRows = {t_ta.MAX_ROWS};" in src
+    assert f"constexpr int kTile = {t_ta.TILE};" in src
+    assert f"constexpr int kChunk = {t_ta.CHUNK};" in src
+    # the static mask weights (2 x kChunk x kMaxRows floats) beside the
+    # dynamic budget stay within the 48 KB without an opt-in
+    assert t_ta.SMEM_BUDGET + 2 * t_ta.CHUNK * t_ta.MAX_ROWS * 4 <= 48 * 1024
+    with pytest.raises(ValueError, match="at most 65535 scenarios"):
+        t_ta.plan(65536, 10, 36, 256)

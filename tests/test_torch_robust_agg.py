@@ -372,6 +372,41 @@ def test_kernel_trim_equals_the_k_pass_extraction(k, nan):
                           _successor_extraction(y, valid, k))
 
 
+@pytest.mark.parametrize("C_,k", [(40, 17), (40, 24), (14, 6)])
+@pytest.mark.parametrize("nan", [False, True])
+def test_kernel_trim_paths_equal_the_reference_extraction(C_, k, nan):
+    """Past the kernel's lists (k = 17, 24 at C = 40: the kernel's own k
+    passes over a column, transcribed as ``_successor_extraction``) and
+    on them where n - 2k is about 1 (C = 14, k = 6: the lists, as
+    ``_kernel_trim``): bitwise the reference kernel's k-pass
+    ``_trimmed_extract`` itself, NaN by position. The uploads are small
+    integers (ties, and sums exact in any order, so the reference's
+    own sums cannot part from the kernel's index order), with columns
+    past TRIM_BIG and infinities planted, n around 2k."""
+    from repro.kernels.robust_agg.robust_agg import _trimmed_extract
+    rng = np.random.default_rng(C_ + k)
+    P_, F_ = 8, 16
+    y = rng.integers(-3, 4, size=(C_, P_, F_)).astype(np.float32)
+    y[:, 1] = 3.3e38                          # all past TRIM_BIG
+    y[2, 2, :4] = np.inf
+    y[5, 2, 2:6] = -np.inf
+    valid = (rng.random((C_, P_)) < 0.9).astype(np.float32)
+    valid[:, 1] = 1.0
+    valid[:, 3] = 0.0                         # nothing valid
+    valid[:2 * k - 1, 4], valid[2 * k - 1:, 4] = 1.0, 0.0   # n = 2k - 1
+    valid[:2 * k + 1, 5], valid[2 * k + 1:, 5] = 1.0, 0.0   # n = 2k + 1
+    if nan:
+        y[4, 6, :8] = np.nan
+        valid[4, 6] = 1.0
+    with np.errstate(over="ignore", invalid="ignore"):
+        got = _successor_extraction(y, valid, k)
+        want = np.asarray(_trimmed_extract(jnp.asarray(y),
+                                           jnp.asarray(valid[..., None]), k))
+        assert _same_bits(got, want)
+        if k <= t_ra.TRIM_SLOTS[-1]:
+            assert _same_bits(_kernel_trim(y, valid, k), want)
+
+
 def test_trim_defeats_sign_flip_byzantine():
     rng = np.random.default_rng(9)
     C_, P_, F_ = 9, 4, 16
@@ -457,18 +492,46 @@ def test_kernel_entries_refuse_a_cpu_operand_first(batched, name):
             t_ra._lib.cache_info()) == before
 
 
+def _pl(chunk, slots, smem, threads=256, column=False):
+    return t_ra.Plan(chunk, slots, smem, threads, column)
+
+
+PASSES = t_ra.PASSES
+
+
 @pytest.mark.parametrize("S,C_,P_,F_,trim_k,ef,want", [
-    (1, 12, 36, 256, 2, False, t_ra.Plan(12, 2, 12 * 256 * 4)),   # cell
-    (9, 12, 36, 256, 2, False, t_ra.Plan(12, 2, 12 * 256 * 4)),   # grid
-    (1, 12, 36, 256, 0, False, t_ra.Plan(12, 0, 12 * 256 * 4)),
-    (1, 1, 36, 256, 1, True, t_ra.Plan(1, 1, 2 * 256 * 4)),
-    (1, 16, 36, 256, 3, False, t_ra.Plan(16, 4, 16 * 256 * 4)),
-    (1, 17, 36, 256, 5, False, t_ra.Plan(16, 8, 16 * 256 * 4)),
-    (1, 17, 36, 256, 0, True, t_ra.Plan(16, 0, 2 * 16 * 256 * 4)),
-    (1, 64, 1024, 256, 2, True, t_ra.Plan(16, 2, 2 * 16 * 256 * 4)),
-    (8, 64, 1024, 256, 0, False, t_ra.Plan(16, 0, 16 * 256 * 4)),
-    (1, 64, 4, 1024, 16, True, t_ra.Plan(16, 16, 2 * 16 * 1024 * 4)),
-    (65535, 1, 1, 32, 0, False, t_ra.Plan(1, 0, 32 * 4))])
+    (1, 12, 36, 256, 2, False, _pl(12, 2, 12 * 256 * 4)),   # cell
+    (9, 12, 36, 256, 2, False, _pl(12, 2, 12 * 256 * 4)),   # grid
+    (1, 12, 36, 256, 0, False, _pl(12, 0, 12 * 256 * 4)),
+    (1, 1, 36, 256, 1, True, _pl(1, 1, 2 * 256 * 4)),
+    (1, 16, 36, 256, 3, False, _pl(16, 4, 16 * 256 * 4)),
+    (1, 17, 36, 256, 5, False, _pl(16, 8, 16 * 256 * 4)),
+    (1, 17, 36, 256, 0, True, _pl(16, 0, 2 * 16 * 256 * 4)),
+    (1, 64, 1024, 256, 2, True, _pl(16, 2, 2 * 16 * 256 * 4)),
+    (8, 64, 1024, 256, 0, False, _pl(16, 0, 16 * 256 * 4)),
+    (1, 64, 4, 1024, 16, True, _pl(16, 16, 2 * 16 * 1024 * 4, 1024)),
+    (65535, 1, 1, 32, 0, False, _pl(1, 0, 32 * 4, 32)),
+    # trim_k > 16: the k passes over a (C, F + 1) column in shared memory
+    # beside the chunk's rows, or in device memory where it does not fit
+    (1, 40, 36, 256, 17, False,
+     _pl(16, PASSES, 16 * 256 * 4 + 40 * 257 * 4)),
+    (1, 40, 36, 256, 24, True,
+     _pl(16, PASSES, 2 * 16 * 256 * 4 + 40 * 257 * 4)),
+    (2, 40, 36, 256, 20, False,
+     _pl(16, PASSES, 16 * 256 * 4 + 40 * 257 * 4)),
+    (1, 50, 8, 1024, 17, True, _pl(16, PASSES, 2 * 16 * 1024 * 4, 1024,
+                                   True)),
+    (1, 300, 36, 256, 17, False, _pl(16, PASSES, 16 * 256 * 4, 256, True)),
+    # C = 14, k = 6 stays on the lists
+    (1, 14, 36, 256, 6, False, _pl(14, 8, 14 * 256 * 4)),
+    # packet widths off a multiple of 32: F rounded up to whole warps,
+    # a chunk row a float a thread
+    (1, 12, 36, 1, 2, False, _pl(12, 2, 12 * 32 * 4, 32)),
+    (1, 12, 36, 100, 2, True, _pl(12, 2, 2 * 12 * 128 * 4, 128)),
+    (1, 12, 36, 255, 0, False, _pl(12, 0, 12 * 256 * 4, 256)),
+    (1, 40, 36, 100, 17, False,
+     _pl(16, PASSES, 16 * 128 * 4 + 40 * 101 * 4, 128)),
+    (1, 12, 36, 1024, 2, False, _pl(12, 2, 12 * 1024 * 4, 1024))])
 def test_launch_plan_at_the_paths_shapes(S, C_, P_, F_, trim_k, ef, want):
     assert t_ra.plan(S, C_, P_, F_, trim_k, ef) == want
     # the most a CTA may opt into, beside the kernel's 896 static bytes
@@ -476,15 +539,15 @@ def test_launch_plan_at_the_paths_shapes(S, C_, P_, F_, trim_k, ef, want):
 
 
 @pytest.mark.parametrize("S,C_,P_,F_,trim_k,msg", [
-    (1, 12, 36, 48, 2, "F a multiple of 32"),
-    (1, 12, 36, 16, 2, "F a multiple of 32"),
-    (1, 12, 36, 1056, 0, "F a multiple of 32"),
+    (1, 12, 36, 0, 2, "F in \\[1, 1024\\]"),
+    (1, 12, 36, 1025, 2, "F in \\[1, 1024\\]"),
+    (1, 12, 36, 1056, 0, "F in \\[1, 1024\\]"),
     (1, 0, 36, 256, 2, "S, C, P > 0"),
     (1, 12, 0, 256, 2, "S, C, P > 0"),
     (0, 12, 36, 256, 2, "S, C, P > 0"),
     (65536, 12, 36, 256, 2, "at most 65535 scenarios"),
-    (1, 12, 36, 256, -1, "trim_k must be in \\[0, 16\\]"),
-    (1, 40, 36, 256, 17, "trim_k must be in \\[0, 16\\]")])
+    (1, 12, 36, 256, -1, "trim_k must be >= 0"),
+    (1, 40, 36, 256, -17, "trim_k must be >= 0")])
 def test_launch_plan_refuses_what_the_kernel_cannot_take(S, C_, P_, F_,
                                                          trim_k, msg):
     for ef in (False, True):
@@ -504,7 +567,10 @@ def test_launch_plan_constants_follow_the_kernel_source():
     assert src.count("[2][kChunk]") == 5 and "s_bad[2][kMaxWarps]" in src
     assert 2 * (32 + 5 * t_ra.CHUNK) * 4 == 896
     for k in (0, *t_ra.TRIM_SLOTS):
-        assert f"kernel = robust_agg_kernel<{k}>;" in src
+        assert f"kernel = instance<{k}>(tail);" in src
+    assert f"constexpr int kPass = {t_ra.PASSES};" in src
+    assert "kernel = instance<kPass>(tail);" in src
+    assert t_ra.SMEM_LIMIT == 232448 - 896
 
 
 def test_binding_check_names_the_operand():

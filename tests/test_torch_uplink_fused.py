@@ -211,3 +211,163 @@ def test_batched_wrapper_refuses_cpu_tensors(scenarios):
         t_uf.uplink_fused_batched_call(
             x, torch.tensor(scenarios["mask"]), torch.tensor(scenarios["w"]),
             torch.ones(S), per_coord=False)
+
+
+# ---------------------------------------------------------------------------
+# packet widths off a multiple of 32, and the binding's contract
+# ---------------------------------------------------------------------------
+F_ODD = 255
+D_ODD = P * F_ODD - 11
+
+
+@pytest.fixture(scope="module")
+def odd_case():
+    """The case's clients at F = 255, a partial last packet."""
+    rng = np.random.default_rng(17)
+    flat = rng.normal(size=(C, D_ODD)).astype(np.float32)
+    xp = np.pad(flat, ((0, 0), (0, 11))).reshape(C, P, F_ODD)
+    mask = (rng.random((C, P)) > 0.4).astype(np.float32)
+    pcnt = np.full((P,), F_ODD, np.float32)
+    pcnt[-1] = F_ODD - 11
+    return dict(xp=xp, ef=rng.normal(size=(C, D_ODD)).astype(np.float32),
+                mask=mask, w=(rng.random(C) + 0.1).astype(np.float32),
+                suff=(rng.random(C) > 0.5).astype(np.float32),
+                mult=(rng.random(C) + 0.5).astype(np.float32),
+                kept=((mask @ pcnt) / np.float32(D_ODD)).astype(np.float32),
+                lr=np.float32(0.4))
+
+
+@pytest.mark.parametrize("impl", ["ref", "kernel"])
+@pytest.mark.parametrize("mode", ["per_coord_count", "group_rate"])
+@pytest.mark.parametrize("use_ef", [False, True])
+def test_uplink_round_at_an_odd_packet_width_matches_reference(
+        odd_case, impl, mode, use_ef):
+    """F = 255 through the port's op against the reference's oracle and
+    its interpret-mode Pallas kernel, at the module's tolerances."""
+    c = odd_case
+    kw = dict(mode=mode, d_up=D_ODD, want_ssq=True)
+    j = {k: jnp.asarray(v) for k, v in c.items()}
+    a0, e0, s0 = j_ops.uplink_round(
+        j["xp"], j["mask"], j["w"], ef_rows=j["ef"] if use_ef else None,
+        kept=j["kept"], sufficient=j["suff"], loss_rate=j["lr"],
+        mult=j["mult"], impl=impl, **kw)
+    t = {k: torch.tensor(v) for k, v in c.items()}
+    a1, e1, s1 = t_ops.uplink_round(
+        t["xp"], t["mask"], t["w"], ef_rows=t["ef"] if use_ef else None,
+        kept=t["kept"], sufficient=t["suff"], loss_rate=t["lr"],
+        mult=t["mult"], **kw)
+    np.testing.assert_allclose(a1.numpy(), np.asarray(a0), rtol=2e-5,
+                               atol=1e-6)
+    if use_ef:
+        np.testing.assert_array_equal(e1.numpy(), np.asarray(e0))
+    np.testing.assert_allclose(s1.numpy(), np.asarray(s0), rtol=1e-5)
+
+
+def _uf_plan(threads, tiles, floats, C_, row):
+    chunk = max(1, min(t_uf.CHUNK, C_, t_uf.SMEM_BUDGET // row))
+    return t_uf.Plan(threads, tiles, floats, chunk, chunk * row)
+
+
+@pytest.mark.parametrize("S,C_,P_,F_,ef,bf16,ssq,want", [
+    # the paths' shapes: the quickstart round (36 rows: a thread a float),
+    # the bursty grid (972 rows: 4 floats a thread) and the q-FedAvg grid
+    # (with the norms only one scenario's rows count), EF tiling
+    (1, 10, 36, 256, False, False, True, _uf_plan(256, 1, 1, 10, 1024)),
+    (27, 10, 36, 256, False, False, False, _uf_plan(64, 1, 4, 10, 1024)),
+    (9, 10, 36, 256, False, False, True, _uf_plan(256, 1, 1, 10, 1024)),
+    (1, 64, 1024, 256, True, False, False, _uf_plan(64, 1, 4, 64, 2048)),
+    (1, 64, 1024, 256, True, True, True, _uf_plan(64, 1, 4, 64, 1024)),
+    # any width: whole warps, a row past one CTA's floats over several
+    (1, 10, 36, 1, False, False, False, _uf_plan(32, 1, 1, 10, 128)),
+    (1, 10, 36, 100, True, False, True, _uf_plan(128, 1, 1, 10, 1024)),
+    (1, 10, 36, 255, False, True, False, _uf_plan(256, 1, 1, 10, 512)),
+    (1, 10, 36, 1024, True, False, False, _uf_plan(256, 4, 1, 10, 2048)),
+    (1, 10, 36, 20000, True, False, True, _uf_plan(256, 79, 1, 10, 2048)),
+    (8, 10, 36, 20000, False, True, False, _uf_plan(256, 20, 4, 10, 2048)),
+    (8, 10, 36, 255, True, False, False, _uf_plan(64, 1, 4, 10, 2048)),
+    (1, 0, 36, 256, False, False, False, _uf_plan(256, 1, 1, 0, 1024))])
+def test_launch_plan_covers_any_packet_width(S, C_, P_, F_, ef, bf16, ssq,
+                                             want):
+    """A thread over 4 floats from WIDE_ROWS rows on (one scenario's with
+    the masked norms, so that a batched launch sums them as its single
+    launches do), else one; a CTA at most MAX_THREADS; the chunk's rows
+    within SMEM_BUDGET (no opt-in); the tiles cover F."""
+    pl = t_uf.plan(S, C_, P_, F_, ef, bf16, ssq)
+    assert pl == want
+    assert pl.smem <= t_uf.SMEM_BUDGET and pl.threads % 32 == 0
+    rows = P_ if ssq else S * P_
+    assert pl.floats == (4 if rows >= t_uf.WIDE_ROWS else 1)
+    if ssq:
+        assert pl == t_uf.plan(1, C_, P_, F_, ef, bf16, ssq)
+    span = pl.floats * pl.threads
+    assert span * pl.tiles >= F_ > span * (pl.tiles - 1)
+
+
+@pytest.mark.parametrize("S,C_,P_,F_,msg", [
+    (0, 10, 36, 256, "S, P, F > 0"), (1, 10, 0, 256, "S, P, F > 0"),
+    (1, 10, 36, 0, "S, P, F > 0"), (1, -1, 36, 256, "S, P, F > 0"),
+    (65536, 10, 36, 256, "at most 65535 scenarios")])
+def test_launch_plan_refuses_what_the_kernel_cannot_take(S, C_, P_, F_, msg):
+    with pytest.raises(ValueError, match=msg):
+        t_uf.plan(S, C_, P_, F_, False, False, True)
+
+
+def test_launch_plan_constants_follow_the_kernel_source():
+    """CHUNK and MAX_THREADS restate the kernel's kChunk and kMaxWarps,
+    and the kernel's static shared memory (two buffers of 3 scalars and
+    kMaxWarps ssq words a client) leaves SMEM_BUDGET within the 48 KB a
+    CTA gets without an opt-in."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "uplink_fused.cu").read_text()
+    assert f"constexpr int kChunk = {t_uf.CHUNK};" in src
+    assert f"constexpr int kMaxWarps = {t_uf.MAX_THREADS // 32};" in src
+    static = 2 * t_uf.CHUNK * (3 + t_uf.MAX_THREADS // 32) * 4
+    assert t_uf.SMEM_BUDGET + static <= 48 * 1024
+
+
+class _OnCard:
+    """Stands in for a tensor on the card: the refusal reads only
+    ``is_cuda``."""
+    is_cuda = True
+
+
+_OPERANDS = ("x", "m", "q", "w_or_den", "ef")
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("name", _OPERANDS)
+def test_kernel_entries_refuse_a_cpu_operand_first(batched, name):
+    """A CPU tensor in any operand raises the CUDA refusal, named, before
+    a counter moves and before the library is built or loaded: the rest
+    stand in for tensors on the card, and the CPU one is also of the
+    wrong dtype and shape, so no later check can raise first."""
+    ops = {k: _OnCard() for k in _OPERANDS}
+    ops[name] = torch.zeros(3, dtype=torch.float64)
+    entry = (t_uf.uplink_fused_batched_call if batched
+             else t_uf.uplink_fused_call)
+    before = (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES, t_uf._lib.cache_info())
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        entry(*(ops[k] for k in _OPERANDS[:4]), ef=ops["ef"],
+              want_ssq=True, per_coord=False)
+    assert (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES,
+            t_uf._lib.cache_info()) == before
+
+
+def test_binding_check_names_the_operand():
+    """The per-operand fallback of the one-pass check: device (naming
+    CUDA), dtype, shape, contiguity, in that order."""
+    card = torch.device("cuda", 0)
+    t = torch.zeros((2, 3))
+    f32 = torch.float32
+    with pytest.raises(ValueError, match="m must be a CUDA tensor on "
+                                         "cuda:0, not on cpu"):
+        t_uf._check("m", t, (2, 3), f32, card)
+    here = t.device
+    with pytest.raises(TypeError, match="x must be torch.bfloat16"):
+        t_uf._check("x", t, (2, 3), torch.bfloat16, here)
+    with pytest.raises(ValueError, match=r"q must have shape \(3, 2\)"):
+        t_uf._check("q", t, (3, 2), f32, here)
+    with pytest.raises(ValueError, match="ef must be contiguous"):
+        t_uf._check("ef", t.t(), (3, 2), f32, here)
+    t_uf._check("x", t, (2, 3), f32, here)

@@ -61,8 +61,9 @@ KERNELS = ("robust_agg", "packet_mask")
 # see where its device time goes (some give wrong outputs: they time only
 # what is left)
 VARIANTS = {
-    "no_x_loads": [("    for (int j = 0; j < nc; ++j) cp_async4(xr + (size_t)j"
-                    " * F, xg + j * plane);\n", "")],
+    "no_x_loads": [("    for (int j = 0; j < nc; ++j)\n      cp_async4(xr + "
+                    "(size_t)j * ld, xg + j * plane);\n", "")],
+
     "no_chunk_barrier": [("    __syncthreads();  // the chunk's one barrier",
                           "")],
     "client_unroll_2": [
