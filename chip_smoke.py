@@ -28,8 +28,12 @@ Phases:
                 20,000 and on rows one element past an aligned address,
                 f32 and bf16, against uplink_ref, their 3-scenario
                 launches bitwise the single ones; netsim_mask bitwise vs
-                ge_mask_ref at the grid's shape (R=270, P=36) and a
-                tiling shape
+                ge_mask_ref at the grid's shape (R=270, P=36), the
+                recovery grid's (72, 36) and a tiling shape, over the
+                scan's edges (R=37, P from 1 to 1024, NaN uniforms, rows
+                all BAD, flip rates 0 and 1, uniforms at their
+                thresholds), each also on misaligned rows, and through
+                the op's vmap fold (one launch, bitwise S single ones)
   3. main path  the quickstart's three configurations (threshold 70%,
                 TRA 10%, lossless), q-FedAvg, 50 rounds, N=30, C=10,
                 with every launch count set to 0 just before and read
@@ -76,7 +80,9 @@ Phases:
                 CPU, held the same way
   7. recovery   fec_recover bitwise vs fec_recover_ref at the recipe's
                 shape (R=72, P=36, G=8) and a tiling shape (R=4096,
-                P=1024, G=8 and G=3), and through the op's vmap rule
+                P=1024, G=8 and G=3), over the count's edges (R=37, P
+                from 1 to 1024, G from 1 to 40, NaN mask entries), each
+                also on misaligned rows, and through the op's vmap rule
                 bitwise against S single launches. Then the
                 docs/EXPERIMENTS.md recovery grid (recovery policy x
                 uplink loss {0.1, 0.3}, 30% GE downlink with the stale
@@ -93,7 +99,8 @@ Phases:
                 (CUDA events, median of 100 after warm-up, 20 at the
                 tiling shapes of robust_agg, fec_recover and the
                 protocol kernels), device time from torch.profiler, the
-                bound; uplink_fused at the tiling shape with EF in f32
+                bound; netsim_mask at (270, 36), (72, 36) and (4096,
+                1024); uplink_fused at the tiling shape with EF in f32
                 and bf16 and robust_agg with trim_k = 17 at C = 40 too;
                 and profiles of quickstart rounds, of grid
                 rounds, of defended grid rounds, of recovery grid rounds
@@ -185,6 +192,7 @@ from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import (  # noqa: E402
     flash_decode_ref)
 from repro_torch.kernels.netsim_mask import netsim_mask as nm  # noqa: E402
+from repro_torch.kernels.netsim_mask import ops as nm_ops  # noqa: E402
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref  # noqa: E402
 from repro_torch.kernels.packet_mask import ops as pm_ops  # noqa: E402
 from repro_torch.kernels.packet_mask import packet_mask as pm  # noqa: E402
@@ -216,6 +224,10 @@ from repro_torch.network import packets  # noqa: E402
 from repro_torch.network.trace import (ClientNetworks,  # noqa: E402
                                        sample_networks)
 from repro_torch.utils.guards import assert_finite_tree  # noqa: E402
+# the channel kernels' edge cases, shared with the card tests
+sys.path.insert(1, os.path.join(ROOT, "tests"))
+from _torch_channel_cases import (FEC_G, GE_VARIANTS, MASK_P,  # noqa: E402
+                                  SEEDS, fec_case, ge_case)
 
 # H100 SXM HBM3 rate (NVIDIA data sheet); the byte bound divides by it
 HBM_BYTES_PER_S = 3.35e12
@@ -225,7 +237,9 @@ TILE_SHAPE = (64, 1024, 256)
 GRID_SHAPE = (27, 10, 36, 256)  # S, C, P, F of the bursty grid's round
 GRID_TILE_SHAPE = (8, 64, 1024, 256)
 MASK_SHAPE = (270, 36)          # R = S * C, P of the bursty grid's round
+MASK_REC_SHAPE = (72, 36)       # the recovery grid's uplink or downlink
 MASK_TILE_SHAPE = (4096, 1024)
+CHANNEL_ROWS = 37               # the edge cases' R: no CTA's rows divide it
 ROUNDS = 50
 PARITY_ROUNDS = 5
 GRID_ROUNDS = 60
@@ -608,18 +622,53 @@ def mask_inputs(shape, seed, dev):
 
 
 def check_mask_kernel(dev):
-    """netsim_mask bitwise against its plain version; returns 0.0, the
-    largest difference, for the summary."""
-    for n, shape in enumerate((MASK_SHAPE, MASK_TILE_SHAPE)):
-        args = mask_inputs(shape, n, dev)
-        mask, s_fin = nm.netsim_mask_call(*args)
-        torch.cuda.synchronize()
-        r_mask, r_s = ge_mask_ref(*args)
-        if not (torch.equal(mask, r_mask) and torch.equal(s_fin, r_s)):
-            fail(f"netsim_mask differs from ge_mask_ref at {shape}")
+    """netsim_mask bitwise against its plain version at the paths' and the
+    tiling shapes; over the scan's edges (P in MASK_P x seeds x variants
+    at R = 37: NaN uniforms, every row BAD, flip rates 0 and 1, uniforms
+    equal to their thresholds), each also on uniforms one element past an
+    aligned address; and through the op's vmap fold (one launch, bitwise
+    S single launches). Returns 0.0, the largest difference."""
+    shapes = (MASK_SHAPE, MASK_REC_SHAPE, MASK_TILE_SHAPE)
+    cases = [(f"{shape}", mask_inputs(shape, n, dev))
+             for n, shape in enumerate(shapes)]
+    cases += [(f"P={P} seed={seed} {variant}",
+               [torch.tensor(a, device=dev)
+                for a in ge_case(CHANNEL_ROWS, P, seed, variant)])
+              for seed, P, variant in itertools.product(SEEDS, MASK_P,
+                                                        GE_VARIANTS)]
+    for label, case in cases:
+        for shift in (False, True):
+            args = list(case)
+            if shift:
+                args[0], args[1] = misaligned(args[0]), misaligned(args[1])
+            mask, s_fin = nm.netsim_mask_call(*args)
+            torch.cuda.synchronize()
+            r_mask, r_s = ge_mask_ref(*args)
+            if not (torch.equal(mask, r_mask) and torch.equal(s_fin, r_s)):
+                fail(f"netsim_mask differs from ge_mask_ref at {label}"
+                     f"{' misaligned' if shift else ''}")
+    S, C, P = 27, 10, 36
+    case = [torch.tensor(a, device=dev) for a in ge_case(S * C, P, 3)]
+    u_t, u_e = (a.reshape(S, C, P) for a in case[:2])
+    rows = [a.reshape(S, C) for a in case[2:]]
+    before = nm.LAUNCHES
+    folded, s_fold = torch.func.vmap(nm_ops.ge_packet_mask)(u_t, u_e, *rows)
+    torch.cuda.synchronize()
+    if nm.LAUNCHES - before != 1:
+        fail(f"the mask's vmap fold made {nm.LAUNCHES - before} launches, "
+             f"not 1")
+    for i in range(S):
+        mi, si = nm.netsim_mask_call(u_t[i], u_e[i],
+                                     *(r[i].contiguous() for r in rows))
+        if not (torch.equal(folded[i], mi) and torch.equal(s_fold[i], si)):
+            fail(f"netsim_mask vmap fold differs from single launch {i}")
     print(f"[kernels] netsim_mask: masks and final states bitwise equal "
-          f"to ge_mask_ref at R, P = {MASK_SHAPE} and {MASK_TILE_SHAPE}",
-          flush=True)
+          f"to ge_mask_ref at R, P = {shapes[0]}, {shapes[1]} and "
+          f"{shapes[2]} and over {len(cases) - len(shapes)} edge cases "
+          f"(R = {CHANNEL_ROWS}, P in {MASK_P}, seeds {SEEDS}, "
+          f"{', '.join(GE_VARIANTS)}; NaN uniforms planted), each also "
+          f"misaligned; the vmap fold of S={S} x C={C} rows is one launch, "
+          f"bitwise S single launches", flush=True)
     return 0.0
 
 
@@ -1510,9 +1559,12 @@ def fec_inputs(shape, seed, dev):
 
 def check_fec_kernel(dev):
     """fec_recover bitwise against its plain version at the recipe's and
-    the tiling shapes, and through the op's vmap rule against S single
-    launches (the rule's fold is one launch). Returns 0.0, the largest
-    difference, for the summary."""
+    the tiling shapes; over the count's edges (P in MASK_P x G in FEC_G x
+    seeds at R = 37, NaN mask entries beside a loss, alone with the
+    parity delivered and alone with it lost), each also on a mask one
+    element past an aligned address; and through the op's vmap rule
+    against S single launches (the rule's fold is one launch). Returns
+    0.0, the largest difference, for the summary."""
     repaired = []
     for n, shape in enumerate((FEC_SHAPE, *FEC_TILE_SHAPES)):
         mask, par, G = fec_inputs(shape, n, dev)
@@ -1521,6 +1573,18 @@ def check_fec_kernel(dev):
         if not torch.equal(out, fec_recover_ref(mask, par, G)):
             fail(f"fec_recover differs from fec_recover_ref at {shape}")
         repaired.append(int((out != mask).sum()))
+    n_edge = 0
+    for seed, P, G in itertools.product(SEEDS, MASK_P, FEC_G):
+        mask, par = (torch.tensor(a, device=dev)
+                     for a in fec_case(CHANNEL_ROWS, P, G, seed))
+        for shift in (False, True):
+            m = misaligned(mask) if shift else mask
+            out = fc.fec_recover_call(m, par, group=G)
+            torch.cuda.synchronize()
+            if not torch.equal(bits(out), bits(fec_recover_ref(m, par, G))):
+                fail(f"fec_recover differs from fec_recover_ref at P={P} "
+                     f"G={G} seed={seed}{' misaligned' if shift else ''}")
+        n_edge += 1
     S, C, P, G = 6, 12, 36, 8
     mask, par, _ = fec_inputs((S * C, P, G), 7, dev)
     mask, par = mask.reshape(S, C, P), par.reshape(S, C, -1)
@@ -1536,9 +1600,11 @@ def check_fec_kernel(dev):
             fail(f"fec_recover vmap fold differs from single launch {i}")
     print(f"[recovery] fec_recover: bitwise equal to fec_recover_ref at "
           f"(R, P, G) = {FEC_SHAPE}, {FEC_TILE_SHAPES[0]} and "
-          f"{FEC_TILE_SHAPES[1]} ({repaired} packets repaired); the vmap "
-          f"fold of S={S} x C={C} rows is one launch, bitwise S single "
-          f"launches", flush=True)
+          f"{FEC_TILE_SHAPES[1]} ({repaired} packets repaired) and over "
+          f"{n_edge} edge cases (R = {CHANNEL_ROWS}, P in {MASK_P}, G in "
+          f"{FEC_G}, seeds {SEEDS}; NaN entries planted), each also "
+          f"misaligned; the vmap fold of S={S} x C={C} rows is one launch, "
+          f"bitwise S single launches", flush=True)
     return 0.0
 
 
@@ -2860,6 +2926,7 @@ def main() -> int:
     batched_t = time_batched_uplink(GRID_SHAPE, card)
     time_batched_uplink(GRID_TILE_SHAPE, card)
     mask_t = time_mask(MASK_SHAPE, card)
+    time_mask(MASK_REC_SHAPE, card)
     time_mask(MASK_TILE_SHAPE, card)
     robust_t = time_robust(ROBUST_SHAPE, card, batched=False)
     time_robust(ROBUST_TILE_SHAPE, card, batched=False)

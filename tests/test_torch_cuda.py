@@ -17,8 +17,8 @@ own NaN payload); batched against S single launches bitwise; with the
 gates off, bitwise the uplink kernel on finite inputs; a defended grid
 round on the card against the CPU: cohorts and quarantine counts
 bitwise, params rtol 1e-4 / atol 1e-5. The FEC repair kernel against its
-plain version bitwise (0/1 masks, exact sums), its vmap fold one launch
-and bitwise S single launches; recovery grid rounds on the card against
+plain version bit for bit (0/1 masks with NaN entries planted), its vmap
+fold one launch and bitwise S single launches; recovery grid rounds on the card against
 the CPU: cohorts and both channel chains bitwise, params rtol 1e-4 /
 atol 1e-5. The protocol layer's kernels against their plain versions on
 the card: packet_mask bitwise in f32 and bf16 with NaN, Inf and -0.0
@@ -57,6 +57,7 @@ from repro_torch.kernels.flash_decode import flash_decode as t_fd
 from repro_torch.kernels.flash_decode import ops as t_fd_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.netsim_mask import netsim_mask as t_nm
+from repro_torch.kernels.netsim_mask import ops as t_nm_ops
 from repro_torch.kernels.netsim_mask.ref import ge_mask_ref
 from repro_torch.kernels.packet_mask import packet_mask as t_pm
 from repro_torch.kernels.packet_mask.ref import packet_mask_ref
@@ -80,6 +81,8 @@ from repro_torch.netsim.faults import DefenseConfig, FaultConfig, flip_bit_op
 from repro_torch.netsim.recovery import RecoveryConfig
 from repro_torch.network import packets as t_pk
 from repro_torch.network.trace import ClientNetworks, sample_networks
+from _torch_channel_cases import (FEC_G, GE_VARIANTS, MASK_P, SEEDS,
+                                  fec_case, ge_case)
 
 S, C, P, F = 3, 6, 16, 32
 D_UP = P * F - 11                       # partial last packet
@@ -235,6 +238,79 @@ def test_cuda_netsim_mask_matches_plain(dev, R, P_):
     assert t_nm.LAUNCHES == before + 1
     mr, sr = ge_mask_ref(u_t, u_e, s0, p_gb, p_bg, h_g, h_b)
     assert torch.equal(m, mr) and torch.equal(s, sr)
+
+
+CARD_ROWS = 37          # no CTA's row count divides it
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", GE_VARIANTS)
+@pytest.mark.parametrize("P_", MASK_P)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cuda_netsim_mask_cases_match_plain(dev, seed, P_, variant):
+    """The scan kernel bitwise its plain version at the scan's edges (P
+    under, at and past a warp's 32 lanes and 4 packets a lane), R = 37
+    rows, NaN uniforms, every row starting BAD, flip rates 0 and 1,
+    uniforms equal to their thresholds; and again on uniforms one
+    element past an aligned address (the one-packet-a-lane path)."""
+    case = [torch.tensor(a, device=dev)
+            for a in ge_case(CARD_ROWS, P_, seed, variant)]
+    for shift in (False, True):
+        args = list(case)
+        if shift:
+            args[0], args[1] = _shifted(args[0]), _shifted(args[1])
+        before = t_nm.LAUNCHES
+        m, s = t_nm.netsim_mask_call(*args)
+        torch.cuda.synchronize()
+        assert t_nm.LAUNCHES == before + 1
+        mr, sr = ge_mask_ref(*args)
+        assert torch.equal(m, mr) and torch.equal(s, sr), f"shift={shift}"
+
+
+@pytest.mark.cuda
+def test_cuda_netsim_mask_vmap_fold_is_one_launch(dev):
+    """The sweep's scenario axis through the op: one launch over S*C rows,
+    bitwise S single launches."""
+    S, C_, P_ = 27, 10, 36
+    case = [torch.tensor(a, device=dev) for a in ge_case(S * C_, P_, 3)]
+    u_t, u_e = (a.reshape(S, C_, P_) for a in case[:2])
+    rows = [a.reshape(S, C_) for a in case[2:]]
+    before = t_nm.LAUNCHES
+    m, s = torch.func.vmap(t_nm_ops.ge_packet_mask)(u_t, u_e, *rows)
+    torch.cuda.synchronize()
+    assert t_nm.LAUNCHES == before + 1
+    for i in range(S):
+        mi, si = t_nm.netsim_mask_call(u_t[i], u_e[i],
+                                       *(r[i].contiguous() for r in rows))
+        assert torch.equal(m[i], mi) and torch.equal(s[i], si)
+
+
+@pytest.mark.cuda
+def test_cuda_netsim_mask_binding_names_each_fault(dev):
+    u = torch.rand((4, 36), device=dev)
+    s0 = torch.zeros(4, dtype=torch.int32, device=dev)
+    r = torch.full((4,), 0.1, device=dev)
+    before = t_nm.LAUNCHES
+    for args, exc, msg in [
+            ((u, u, s0.cpu(), r, r, r, r), ValueError,
+             "CUDA tensors only, and s0 "),
+            ((u, u, s0.float(), r, r, r, r), TypeError, "s0 must be"),
+            ((u, u, s0, r[:3], r, r, r), ValueError,
+             "p_gb must have shape"),
+            ((u, u.t().contiguous().t(), s0, r, r, r, r), ValueError,
+             "u_e must"),
+            ((u, u, s0, r, r, r, r.double()), TypeError, "h_b must be")]:
+        with pytest.raises(exc, match=msg):
+            t_nm.netsim_mask_call(*args)
+    assert t_nm.LAUNCHES == before
+    s1 = s0 + 1
+    for shape in ((0, 36), (4, 0)):
+        z = torch.rand(shape, device=dev)
+        rows = shape[0]
+        m, s = t_nm.netsim_mask_call(z, z, s1[:rows], r[:rows], r[:rows],
+                                     r[:rows], r[:rows])
+        assert m.shape == shape and torch.equal(s, s1[:rows])
+    assert t_nm.LAUNCHES == before
 
 
 def _grid(n_rounds):
@@ -715,6 +791,47 @@ def test_cuda_fec_vmap_fold_is_one_launch(dev):
     for i in range(S):
         assert torch.equal(out[i], t_fc.fec_recover_call(mask[i], par[i],
                                                          group=G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", FEC_G)
+@pytest.mark.parametrize("P_", MASK_P)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cuda_fec_cases_match_plain(dev, seed, P_, G):
+    """The ballot kernel bitwise its plain version at the count's edges (G
+    from 1 to past 32 lanes, ragged last groups), R = 37 rows, NaN mask
+    entries beside a loss, alone with the parity delivered and alone with
+    it lost; and again on a mask one element past an aligned address."""
+    mask, par = (torch.tensor(a, device=dev)
+                 for a in fec_case(CARD_ROWS, P_, G, seed))
+    for shift in (False, True):
+        m = _shifted(mask) if shift else mask
+        before = t_fc.LAUNCHES
+        out = t_fc.fec_recover_call(m, par, group=G)
+        torch.cuda.synchronize()
+        assert t_fc.LAUNCHES == before + 1
+        assert torch.equal(_bits(out), _bits(fec_recover_ref(m, par, G))), \
+            f"shift={shift}"
+
+
+@pytest.mark.cuda
+def test_cuda_fec_binding_names_each_fault(dev):
+    m = torch.ones((4, 36), device=dev)
+    par = torch.ones((4, 5), device=dev)
+    before = t_fc.LAUNCHES
+    for args, exc, msg in [
+            ((m, par.cpu()), ValueError, "CUDA tensors only, and parity "),
+            ((m.cpu(), par), ValueError, "CUDA tensors only, and mask "),
+            ((m.double(), par), TypeError, "mask must be"),
+            ((m, par[:, :4]), ValueError, "parity must have shape"),
+            ((m.t().contiguous().t(), par), ValueError,
+             "mask must be contiguous")]:
+        with pytest.raises(exc, match=msg):
+            t_fc.fec_recover_call(*args, group=8)
+    with pytest.raises(ValueError, match="group must be positive"):
+        t_fc.fec_recover_call(m, par, group=0)
+    assert t_fc.fec_recover_call(m[:0], par[:0], group=8).shape == (0, 36)
+    assert t_fc.LAUNCHES == before
 
 
 def _recovery_grid(n_rounds):

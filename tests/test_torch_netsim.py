@@ -45,6 +45,7 @@ from repro_torch.core.tra import TRAConfig as TTRA
 from repro_torch.data.synthetic import generate_synthetic as t_generate
 from repro_torch.kernels.netsim_mask import netsim_mask as t_nm
 from repro_torch.kernels.netsim_mask import ops as t_ops
+from repro_torch.kernels.netsim_mask.ref import ge_mask_ref as t_mask_ref
 from repro_torch.netsim import bandwidth as t_bw
 from repro_torch.netsim import channel as t_ch
 from repro_torch.netsim import delivery as t_dl
@@ -52,6 +53,8 @@ from repro_torch.netsim.config import NetSimConfig as TNetSim
 from repro_torch.netsim.state import init_net_state
 from repro_torch.network import trace as t_trace
 from repro_torch.network.packets import n_packets
+from _torch_channel_cases import (GE_VARIANTS, MASK_P, SEEDS, ge_case,
+                                  scan_mask)
 
 N_CLIENTS = 20
 ROUNDS = 5
@@ -124,6 +127,77 @@ def test_mask_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         t_nm.netsim_mask_call(x, x, torch.zeros(2, dtype=torch.int32),
                               *[torch.zeros(2)] * 4)
+
+
+def _mask_geometries(P):
+    """The kernel's plan for rows of P packets, a whole warp a row and a
+    narrow segment, one packet a lane and (where P allows it) four."""
+    want = t_nm.plan(P, P % 4 == 0)
+    out = {(want.lanes, want.vec), (32, False), (4, False)}
+    if P % 4 == 0:
+        out |= {(32, True), (2, True)}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("variant", GE_VARIANTS)
+@pytest.mark.parametrize("P", MASK_P)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_mask_scan_transcription_matches_reference(seed, P, variant):
+    """The kernel's scheme (32-lane segments or narrower, 1 or 4 packets
+    a lane, the 2-bit map scan and the carry), transcribed in torch, is
+    bitwise the reference's oracle, its Pallas kernel in interpret mode
+    and the plain version, NaN uniforms and threshold ties included."""
+    R = 16
+    case = ge_case(R, P, seed, variant)
+    jargs = tuple(jnp.asarray(a) for a in case)
+    j_m, j_s = j_mask_ref(*jargs)
+    k_m, k_s = j_call(*jargs, block_c=8, interpret=True)
+    np.testing.assert_array_equal(np.asarray(k_m), np.asarray(j_m))
+    np.testing.assert_array_equal(np.asarray(k_s), np.asarray(j_s))
+    targs = tuple(torch.tensor(a) for a in case)
+    p_m, p_s = t_mask_ref(*targs)
+    np.testing.assert_array_equal(p_m.numpy(), np.asarray(j_m))
+    np.testing.assert_array_equal(p_s.numpy(), np.asarray(j_s))
+    for lanes, vec in _mask_geometries(P):
+        m, s = scan_mask(*targs, lanes=lanes, vec=vec)
+        np.testing.assert_array_equal(m.numpy(), np.asarray(j_m),
+                                      err_msg=f"lanes={lanes} vec={vec}")
+        np.testing.assert_array_equal(s.numpy(), np.asarray(j_s),
+                                      err_msg=f"lanes={lanes} vec={vec}")
+
+
+@pytest.mark.parametrize("P,vec,lanes", [
+    (36, True, 16), (1024, True, 32), (1, False, 1), (31, False, 32),
+    (33, False, 32), (4, True, 1), (8, False, 8), (36, False, 32),
+    (100, True, 32), (60, True, 16)])
+def test_mask_plan_covers_a_row_in_the_fewest_lanes(P, vec, lanes):
+    pl = t_nm.plan(P, vec)
+    assert (pl.lanes, pl.vec, pl.threads) == (lanes, vec, t_nm.THREADS)
+    assert pl.threads % 32 == 0 and pl.threads % pl.lanes == 0
+
+
+class _OnCard:
+    """Stands in for a tensor on the card: the refusal reads only
+    ``is_cuda``, so a CPU tensor in any other slot is what it refuses."""
+    is_cuda = True
+
+
+_MASK_OPERANDS = ("u_t", "u_e", "s0", "p_gb", "p_bg", "h_g", "h_b")
+
+
+@pytest.mark.parametrize("name", _MASK_OPERANDS)
+def test_mask_call_refuses_a_cpu_operand_first(name):
+    """A CPU tensor in any operand raises the CUDA refusal, named, before
+    the counter moves and before the library is built or loaded; it is
+    also of the wrong dtype and shape, so no later check can raise
+    first."""
+    ops = {k: _OnCard() for k in _MASK_OPERANDS}
+    ops[name] = torch.zeros(3, dtype=torch.float64)
+    before = (t_nm.LAUNCHES, t_nm._lib.cache_info())
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        t_nm.netsim_mask_call(*(ops[k] for k in _MASK_OPERANDS))
+    assert (t_nm.LAUNCHES, t_nm._lib.cache_info()) == before
 
 
 @pytest.mark.parametrize("seed", [0, 1, 12345])

@@ -80,6 +80,8 @@ from repro_torch.netsim.recovery import RecoveryConfig as TRecovery
 from repro_torch.netsim.state import init_net_state as t_init_net
 from repro_torch.network.trace import ClientNetworks as TNets
 from tests._hyp import given, settings, st
+from _torch_channel_cases import (FEC_G, MASK_P, SEEDS, ballot_fec,
+                                  fec_case)
 from tests._torch_legacy_engine_v13 import (LegacyState,
                                              make_legacy_round_step)
 
@@ -236,6 +238,74 @@ def test_fec_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         t_fec_bind.fec_recover_call(torch.tensor(mask), torch.tensor(par),
                                     group=8)
+
+
+@pytest.mark.parametrize("G", FEC_G)
+@pytest.mark.parametrize("P", MASK_P)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fec_ballot_transcription_matches_reference(seed, P, G):
+    """The kernel's scheme (group-aligned warp steps, losses counted as
+    ``!(m >= 0.5)`` by ballots, a warp a group past 32 lanes), transcribed
+    in torch, is bitwise the reference's oracle, its Pallas kernel in
+    interpret mode and the plain version, NaN mask entries included: a
+    NaN beside a loss, a NaN as the only "loss" with the parity
+    delivered, a NaN alone with the parity lost."""
+    R = 8
+    mask, par = fec_case(R, P, G, seed)
+    j_ref = np.asarray(j_fec_ref(jnp.asarray(mask), jnp.asarray(par), G))
+    pad = par.shape[1] * G - P
+    mpad = jnp.pad(jnp.asarray(mask), ((0, 0), (0, pad)),
+                   constant_values=1.0)
+    j_ker = np.asarray(j_call(mpad, jnp.asarray(par), group=G, block_c=R,
+                              interpret=True))[:, :P]
+    np.testing.assert_array_equal(_bits(j_ker), _bits(j_ref))
+    tm, tp = torch.tensor(mask), torch.tensor(par)
+    np.testing.assert_array_equal(_bits(t_fec_ref(tm, tp, G).numpy()),
+                                  _bits(j_ref))
+    vec = P % 4 == 0 and G % 4 == 0
+    assert t_fec_bind.plan(P, G, vec).vec == vec
+    for v in sorted({False, vec}):
+        np.testing.assert_array_equal(
+            _bits(ballot_fec(tm, tp, G, vec=v).numpy()), _bits(j_ref),
+            err_msg=f"vec={v}")
+    first = min(G, P) - 1
+    assert np.isnan([j_ref[0, 0], j_ref[1, first], j_ref[2, 0]]).all()
+
+
+@pytest.mark.parametrize("P,G,vec,want", [
+    (36, 8, True, (5, 1)),            # the recovery grid: one step a row
+    (1024, 8, True, (16, 2)),
+    (1024, 3, False, (10, 4)),
+    (1024, 32, False, (1, 4)),
+    (1024, 32, True, (4, 2)),
+    (1024, 40, True, (3, 2)),
+    (100, 8, True, (13, 1)),          # 13 groups: one step a row
+    (100, 3, False, (10, 4)),         # 34 groups: 4 steps a row
+    (36, 33, False, (0, 1)),          # past 32 lanes: a warp a group
+    (1024, 132, True, (0, 1)),
+    (1, 1, False, (1, 1))])
+def test_fec_plan_takes_whole_groups_a_step(P, G, vec, want):
+    pl = t_fec_bind.plan(P, G, vec)
+    assert (pl.per_step, pl.steps) == want and pl.vec == vec
+    if pl.per_step:
+        assert pl.per_step * (G // (4 if vec else 1)) <= 32
+
+
+@pytest.mark.parametrize("name", ["mask", "parity"])
+def test_fec_call_refuses_a_cpu_operand_first(name):
+    """A CPU tensor in either operand raises the CUDA refusal, named,
+    before the counter moves and before the library is built or loaded,
+    whatever else is wrong with it (a float64 of the wrong shape)."""
+    class OnCard:
+        is_cuda = True
+
+    ops = {"mask": OnCard(), "parity": OnCard()}
+    ops[name] = torch.zeros(3, dtype=torch.float64)
+    before = (t_fec_bind.LAUNCHES, t_fec_bind._lib.cache_info())
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        t_fec_bind.fec_recover_call(ops["mask"], ops["parity"], group=8)
+    assert (t_fec_bind.LAUNCHES, t_fec_bind._lib.cache_info()) == before
 
 
 # ---------------------------------------------------------------------------
