@@ -104,7 +104,9 @@ Phases:
                 and bf16 and robust_agg with trim_k = 17 at C = 40 too;
                 and profiles of quickstart rounds, of grid
                 rounds, of defended grid rounds, of recovery grid rounds
-                and of host-loop rounds
+                and of host-loop rounds (FedAvg and q-FedAvg);
+                qfed_reweight's device time summed over every device
+                op of a call, beside torch.mul of delta alone
   9. protocol   (runs before 8) packet_mask bitwise vs packet_mask_ref
                 with NaN, +-Inf and -0.0 planted, f32 and bf16, at
                 (36, 256), (4096, 256) and (8, 128), at an odd F (36,
@@ -114,9 +116,14 @@ Phases:
                 (10, 36, 256), (16, 1024, 256), (3, 8, 128), (10, 36,
                 255) and (4, 3, 2500), its
                 scenario axis one launch, bitwise S single launches;
-                qfed_reweight's delta bitwise, ssq and h close, its vmap
-                fold one launch. Then the reference's host-loop round
-                (benchmarks/engine_bench.py: Synthetic(1,1), N=100, C=10,
+                qfed_reweight at the host loop's and the bench's
+                shapes, the tails, a view one float past alignment, C =
+                1, P = 1, C = 65,536 and zero sizes: delta bitwise, ssq
+                within rtol 1e-5 and bitwise across two calls, h within
+                1e-5 of the CPU's; its vmap fold one launch, bitwise;
+                one device op a call, single or vmapped. Then the
+                reference's host-loop round (benchmarks/engine_bench.py:
+                Synthetic(1,1), N=100, C=10,
                 seed 7, FedAvg, TRA 10% group_rate through tra.aggregate)
                 for 50 rounds at 1x8 and 10x32, every client sufficient
                 and the sufficiency report, the counts set to 0 just
@@ -1933,31 +1940,66 @@ def check_tra_agg_kernel(dev):
     return max_err
 
 
+QFED_CASES = ((10, 36, 255), (4, 3, 2500), (3, 5, 33), (1, 36, 256),
+              (10, 1, 256), (65536, 1, 1), (0, 36, 256), (10, 0, 256),
+              (10, 36, 0))
+
+
+def qfed_device_ops(fn, reps=10):
+    """The device ops of ``reps`` calls of ``fn`` by name, from
+    torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0}
+
+
 def check_qfed_kernel(dev):
-    """qfed_reweight's delta bitwise against its plain version, ssq and h
-    at rtol 1e-5; its vmap fold one launch. Returns the largest absolute
-    difference over delta and ssq."""
+    """qfed_reweight against its plain version at the host loop's and
+    the bench's shapes, the tails, a view one float past an aligned
+    address, C = 1, P = 1, C = 65,536 and zero sizes: delta bitwise, ssq
+    within rtol 1e-5 and bitwise across two calls, h within 1e-5 of the
+    CPU's; its vmap fold one launch, bitwise S single calls; a call,
+    single or vmapped, one device op (torch.profiler). Returns the
+    largest absolute difference of ssq."""
     max_err = 0.0
-    for n, shape in enumerate((TRA_SHAPE, TRA_TILE_SHAPE)):
+    cases = [(s, False) for s in (TRA_SHAPE, TRA_TILE_SHAPE, *QFED_CASES)]
+    for n, (shape, skew) in enumerate(cases + [(TRA_SHAPE, True)]):
         rng = np.random.default_rng(40 + n)
         dw = torch.tensor(rng.normal(size=shape).astype(np.float32),
                           device=dev)
+        if skew:
+            dw = misaligned(dw)
         losses = torch.tensor(rng.random(shape[0]).astype(np.float32) + 0.5,
                               device=dev)
         fq = torch.pow(losses + qr_ops.LOSS_EPS, 2.0)
-        delta, partials = qr.qfed_reweight_call(dw, fq)
+        label = f"{shape}" + (" one float past alignment" if skew else "")
+        before = qr.LAUNCHES
+        delta, ssq = qr.qfed_reweight_call(dw, fq)
         torch.cuda.synchronize()
+        if qr.LAUNCHES - before != (1 if shape[0] else 0):
+            fail(f"qfed_reweight at {label} made {qr.LAUNCHES - before} "
+                 f"launches")
         d_ref, s_ref = qfed_reweight_ref(dw, fq)
         if not torch.equal(delta, d_ref):
             fail(f"qfed_reweight delta differs from the plain version at "
-                 f"{shape}")
-        ssq = partials.sum(1)
+                 f"{label}")
         torch.testing.assert_close(ssq, s_ref, rtol=1e-5, atol=0)
+        d2, s2 = qr.qfed_reweight_call(dw, fq)
+        if not (torch.equal(delta, d2) and torch.equal(ssq, s2)):
+            fail(f"qfed_reweight at {label}: two calls differ")
         _, h = qr_ops.qfed_reweight_packed(dw, losses, 2.0, 1.0)
         _, h_cpu = qr_ops.qfed_reweight_packed(dw.cpu(), losses.cpu(), 2.0,
                                                1.0)
         torch.testing.assert_close(h.cpu(), h_cpu, rtol=1e-5, atol=0)
-        max_err = max(max_err, float((ssq - s_ref).abs().max()))
+        if ssq.numel():
+            max_err = max(max_err, float((ssq - s_ref).abs().max()))
     before = qr.LAUNCHES
     dw = torch.randn((3,) + TRA_SHAPE, device=dev)
     fq = torch.rand((3, TRA_SHAPE[0]), device=dev) + 0.1
@@ -1970,10 +2012,24 @@ def check_qfed_kernel(dev):
         d1, s1 = qr_ops.qfed_reweight_op(dw[s], fq[s])
         if not (torch.equal(delta[s], d1) and torch.equal(ssq[s], s1)):
             fail(f"qfed_reweight vmap fold differs from single launch {s}")
-    print(f"[protocol] qfed_reweight: delta bitwise, ssq and h within "
-          f"rtol 1e-5 of the plain version at {TRA_SHAPE} and "
-          f"{TRA_TILE_SHAPE} (max |ssq diff| {max_err:.3e} of ssq about "
-          f"P*F); the vmap fold of S=3 is one launch, bitwise", flush=True)
+    seen = []
+    for label, fn in (("one call", lambda: qr_ops.qfed_reweight_op(dw[0],
+                                                                   fq[0])),
+                      ("a vmapped call", lambda: torch.func.vmap(
+                          qr_ops.qfed_reweight_op)(dw, fq))):
+        ops = qfed_device_ops(fn)
+        if len(ops) != 1 or not all("qfed_reweight_kernel" in k
+                                    for k in ops) or sum(ops.values()) > 10:
+            fail(f"qfed_reweight {label}: device ops {ops}, expected the "
+                 f"kernel alone, once a call")
+        seen.append(f"{label} {sum(ops.values())} of 10 calls")
+    print(f"[protocol] qfed_reweight: delta bitwise, ssq within rtol 1e-5 "
+          f"and bitwise across two calls, h within 1e-5 of the cpu's at "
+          f"{TRA_SHAPE}, {TRA_TILE_SHAPE}, {', '.join(map(str, QFED_CASES))} "
+          f"and one float past alignment (max |ssq diff| {max_err:.3e} of "
+          f"ssq about P*F); the vmap fold of S=3 is one launch, bitwise; "
+          f"the kernel is the only device op ({'; '.join(seen)})",
+          flush=True)
     return max_err
 
 
@@ -2303,8 +2359,10 @@ def time_flash_decode(shape, dtype, card):
 
 def device_total_ms(fn, reps, name=""):
     """Device time a call of ``fn``, summed over the CUDA kernels whose
-    name holds ``name`` (all of them by default), from torch.profiler;
-    None where it saw no device time."""
+    name holds ``name`` (all of them by default), from torch.profiler:
+    each kernel's mean over the events recorded, times its launches a
+    call (the profiler can drop events); None where it saw no device
+    time."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2312,10 +2370,12 @@ def device_total_ms(fn, reps, name=""):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if name in ev.key
+    total = sum(ev.self_device_time_total / ev.count
+                * max(1, round(ev.count / reps))
+                for ev in prof.key_averages()
+                if name in ev.key and ev.count
                 and ev.device_type == torch.autograd.DeviceType.CUDA)
-    return total / reps / 1e3 if total > 0 else None
+    return total / 1e3 if total > 0 else None
 
 
 def profile_decode_step(res, card):
@@ -2687,30 +2747,36 @@ def time_qfed(shape, card):
     dw = torch.randn(shape, device="cuda", generator=g)
     fq = torch.rand(shape[0], device="cuda", generator=g) + 0.5
 
+    fq3 = fq[:, None, None]
+
     def kernel():
         return qr.qfed_reweight_call(dw, fq)
 
     def plain():
         return qfed_reweight_ref(dw, fq)
 
+    def library():
+        return torch.mul(dw, fq3)
+
     reps = 20 if shape[1] > 100 else 100
     p1, k1, k2, p2 = (median_ms(f, reps=reps)
                       for f in (plain, kernel, kernel, plain))
-    dev_ms = device_ms(kernel, "qfed_reweight_kernel")
+    lib_ms = median_ms(library, reps=reps)
+    dev_ms = device_total_ms(kernel, 20)
     C, P, F = shape
-    delta, partials = kernel()
-    n_bytes = sum(t.nbytes for t in (dw, fq, delta, partials))
+    delta, ssq = kernel()
+    n_bytes = sum(t.nbytes for t in (dw, fq, delta, ssq))
     # per element the scale's multiply and the square's multiply-add
     bound_ms, bound_by = bound(n_bytes, 3 * C * P * F)
     print(f"[time] qfed_reweight C={C} P={P} F={F} f32: kernel "
-          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (per call, "
-          f"CUDA events, median of {reps}); no single PyTorch call "
-          f"computes it; kernel device time "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, torch.mul of "
+          f"delta alone {lib_ms:.4f} ms (per call, CUDA events, median of "
+          f"{reps}); device time a call over all its ops "
           + (f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured")
           + f" (torch.profiler); bound {bound_ms:.6f} ms by {bound_by} "
           f"({n_bytes} B at 3.35 TB/s) | {card}", flush=True)
     return {"ms": statistics.median([k1, k2]),
-            "plain_ms": statistics.median([p1, p2]), "library_ms": None,
+            "plain_ms": statistics.median([p1, p2]), "library_ms": lib_ms,
             "device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -2866,12 +2932,15 @@ def profile_rounds(card, n=5):
     print_profile(f"{n} quickstart TRA rounds | {card}", prof, wall_ms, n)
 
 
-def profile_host_loop(card, n=5):
+def profile_host_loop(card, n=5, algo="fedavg"):
     """Device busy share and top kernels over ``n`` host-loop rounds
-    (FedAvg, 10 local steps of 32, the sufficiency report)."""
+    (10 local steps of 32): FedAvg with the sufficiency report, or the
+    q-FedAvg server step with every client sufficient, as phase 9 runs
+    them."""
     data, _, suffs = protocol_inputs()
-    cfg = protocol_cfg("fedavg", n + 2, *PROTOCOL_SETTINGS[1])
-    rounds = protocol.round_inputs(cfg, data, suffs["report"])
+    cfg = protocol_cfg(algo, n + 2, *PROTOCOL_SETTINGS[1])
+    suff = "report" if algo == "fedavg" else "all"
+    rounds = protocol.round_inputs(cfg, data, suffs[suff])
     params = mlp_init(prng.PRNGKey(cfg.seed, device="cuda"))
     for inp in itertools.islice(rounds, 2):           # warm-up
         params, _ = protocol.step(params, inp, cfg, "cuda")
@@ -2883,8 +2952,9 @@ def profile_host_loop(card, n=5):
             params, _ = protocol.step(params, inp, cfg, "cuda")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile(f"{n} host-loop FedAvg rounds (10x32, sufficiency report) "
-                  f"| {card}", prof, wall_ms, n)
+    label = ("FedAvg rounds (10x32, sufficiency report)" if algo == "fedavg"
+             else "q-FedAvg rounds (10x32, every client sufficient)")
+    print_profile(f"{n} host-loop {label} | {card}", prof, wall_ms, n)
 
 
 # ---------------------------------------------------------------------------
@@ -2947,6 +3017,7 @@ def main() -> int:
     profile_fault_grid(card)
     profile_recovery_grid(card)
     profile_host_loop(card)
+    profile_host_loop(card, algo="qfedavg")
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [

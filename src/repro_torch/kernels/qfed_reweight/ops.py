@@ -6,11 +6,12 @@ h_k = q (F_k + 1e-10)^(q-1) ||dw_k||^2 + L fq here, with the reference's
 expressions in the reference's order (``repro/kernels/qfed_reweight/
 ops.py``), and call the ``repro_torch::qfed_reweight`` op for the
 scaled pseudo-gradients and the squared norms. On a CUDA tensor the op
-launches the Hopper kernel (``qfed_reweight.qfed_reweight_call``) and
-sums its per-block partials; on a CPU tensor it runs the plain version
+is one launch of the Hopper kernel (``qfed_reweight.qfed_reweight_call``),
+which returns both outputs as they are: one device op, the norms reduced
+inside the kernel; on a CPU tensor it runs the plain version
 (``ref.qfed_reweight_ref``). Nothing else picks the path. Under
 ``torch.func.vmap`` the op's batching rule folds the batch into the
-clients: one launch.
+clients: one launch, bitwise the single calls.
 
 The engine does not call through here: its round step takes the masked
 norms from the uplink megakernel and forms delta and h inline.
@@ -41,8 +42,7 @@ def qfed_reweight_op(dw: torch.Tensor, fq: torch.Tensor
 
 @qfed_reweight_op.register_kernel("cuda")
 def _qfed_reweight_cuda(dw, fq):
-    delta, partials = qfed_reweight_call(dw.contiguous(), fq.contiguous())
-    return delta, partials.sum(dim=1)
+    return qfed_reweight_call(dw.contiguous(), fq.contiguous())
 
 
 @qfed_reweight_op.register_vmap

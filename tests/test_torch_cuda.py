@@ -25,8 +25,10 @@ the card: packet_mask bitwise in f32 and bf16 with NaN, Inf and -0.0
 planted, its vmap fold one launch and bitwise; tra_agg rtol 1e-6 / atol
 1e-6 for every debias mode (the plain einsum sums in another order),
 its scenario axis one launch, bitwise S single launches; qfed_reweight's
-delta bitwise (one multiply), ssq and h rtol 1e-5, its vmap fold one
-launch; two host-loop rounds on the card against the CPU: cohorts and
+delta bitwise (one multiply), ssq and h rtol 1e-5 (the kernel sums in
+its own fixed order) and ssq bitwise across two calls, also misaligned,
+at C = 65,536 and at zero sizes, its vmap fold one launch, a call one
+device op; two host-loop rounds on the card against the CPU: cohorts and
 packet masks bitwise, params rtol 1e-4 / atol 1e-5. The flash-decode
 kernel against its plain version: f32 rtol/atol 2e-5, K/V in bf16 2e-2
 (the reference's own), over the reference's sweep, the serving slice's
@@ -1064,26 +1066,81 @@ def test_cuda_tra_agg_scenario_axis_equals_single_launches(dev, mode):
         assert torch.equal(out[s], one(*(a[s] for a in args)))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(10, 36, 256), (16, 1024, 256),
-                                   (3, 5, 33)])
-def test_cuda_qfed_reweight_matches_plain(dev, shape):
+def _qfed_case(shape, dev, skew=False):
+    """dw (C, P, F) from a numpy seed, one float past an aligned address
+    where ``skew``; losses and fq = (losses + eps)^2 as the op forms it."""
     rng = np.random.default_rng(sum(shape))
     dw = torch.tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+    if skew:
+        buf = torch.empty(dw.numel() + 1, device=dev)
+        dw = buf[1:].view(shape).copy_(dw)
     losses = torch.tensor(rng.random(shape[0]).astype(np.float32) + 0.5,
                           device=dev)
-    fq = torch.pow(losses + t_qr_ops.LOSS_EPS, 2.0)
+    return dw, losses, torch.pow(losses + t_qr_ops.LOSS_EPS, 2.0)
+
+
+def _check_qfed(dw, losses, fq):
+    """One call against the plain version: delta bitwise, ssq (C,) rtol
+    1e-5 and bitwise across two calls, h within 1e-5 of the CPU's."""
     before = t_qr.LAUNCHES
-    delta, partials = t_qr.qfed_reweight_call(dw, fq)
+    delta, ssq = t_qr.qfed_reweight_call(dw, fq)
     torch.cuda.synchronize()
-    assert t_qr.LAUNCHES == before + 1
+    assert t_qr.LAUNCHES == before + (1 if dw.shape[0] else 0)
     d_ref, s_ref = qfed_reweight_ref(dw, fq)
     assert torch.equal(delta, d_ref)
-    torch.testing.assert_close(partials.sum(1), s_ref, rtol=1e-5, atol=0)
+    assert ssq.shape == (dw.shape[0],)
+    torch.testing.assert_close(ssq, s_ref, rtol=1e-5, atol=0)
+    d2, s2 = t_qr.qfed_reweight_call(dw, fq)
+    assert torch.equal(delta, d2) and torch.equal(ssq, s2)
     _, h = t_qr_ops.qfed_reweight_packed(dw, losses, 2.0, 1.0)
     _, h_cpu = t_qr_ops.qfed_reweight_packed(dw.cpu(), losses.cpu(), 2.0,
                                              1.0)
     torch.testing.assert_close(h.cpu(), h_cpu, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 36, 256), (16, 1024, 256),
+                                   (3, 5, 33), (10, 36, 255), (4, 3, 2500),
+                                   (10, 35, 255), (1, 36, 256), (10, 1, 256),
+                                   (65536, 1, 1), (0, 36, 256), (10, 0, 256),
+                                   (10, 36, 0)])
+def test_cuda_qfed_reweight_matches_plain(dev, shape):
+    _check_qfed(*_qfed_case(shape, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 36, 256), (16, 1024, 256)])
+def test_cuda_qfed_reweight_misaligned_view_matches_plain(dev, shape):
+    """dw one float past an aligned address: the float path."""
+    _check_qfed(*_qfed_case(shape, dev, skew=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vmapped", [False, True])
+def test_cuda_qfed_reweight_is_one_device_op(dev, vmapped):
+    """A call of the op, single or vmapped, is the kernel and no other
+    device op (no fill, no sum), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    dw = torch.randn((3, 10, 36, 256), device=dev)
+    fq = torch.rand((3, 10), device=dev) + 0.1
+
+    def call():
+        if vmapped:
+            return torch.func.vmap(t_qr_ops.qfed_reweight_op)(dw, fq)
+        return t_qr_ops.qfed_reweight_op(dw[0], fq[0])
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    ops = {ev.key: ev.count for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and ev.self_device_time_total > 0}
+    assert len(ops) == 1 and "qfed_reweight_kernel" in next(iter(ops))
+    assert 0 < sum(ops.values()) <= 5
 
 
 @pytest.mark.cuda

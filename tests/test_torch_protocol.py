@@ -60,6 +60,7 @@ from repro_torch.kernels.packet_mask import packet_mask as t_pm
 from repro_torch.kernels.packet_mask.packet_mask import \
     packet_mask_call as t_pm_call
 from repro_torch.kernels.qfed_reweight import ops as t_qr_ops
+from repro_torch.kernels.qfed_reweight import qfed_reweight as t_qr
 from repro_torch.kernels.qfed_reweight.qfed_reweight import \
     qfed_reweight_call as t_qr_call
 from repro_torch.kernels.tra_agg import ops as t_ta_ops
@@ -358,6 +359,80 @@ def test_qfed_reweight_vmap_folds_into_clients():
         d1, s1 = t_qr_ops.qfed_reweight_op(dw[s], fq[s])
         assert torch.equal(delta[s], d1)
         np.testing.assert_allclose(ssq[s].numpy(), s1.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("cpu", ["dw", "fq", "both"])
+def test_qfed_reweight_refuses_a_cpu_operand_first(cpu):
+    """A CPU tensor in either operand raises the CUDA refusal, named,
+    before the counter moves and before the library is built or loaded,
+    whatever else is wrong with it (here a float64 of the wrong shape)."""
+    bad = torch.zeros((2, 3, 5), dtype=torch.float64)
+    dw = _OnCard() if cpu == "fq" else bad
+    fq = _OnCard() if cpu == "dw" else bad
+    before = (t_qr.LAUNCHES, t_qr._lib.cache_info())
+    name = "fq" if cpu == "fq" else "dw"
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        t_qr.qfed_reweight_call(dw, fq)
+    assert (t_qr.LAUNCHES, t_qr._lib.cache_info()) == before
+
+
+def test_qfed_reweight_check_names_the_operand():
+    """The per-operand fallback of the one-pass check: device (naming
+    CUDA), dtype, shape, contiguity, in that order; the binding keeps
+    its own check, apart from the uplink kernel's binding."""
+    card = torch.device("cuda", 0)
+    dw = torch.zeros((4, 3, 8))
+    with pytest.raises(ValueError, match="dw must be a CUDA tensor on "
+                                         "cuda:0, not on cpu"):
+        t_qr._check("dw", dw, (4, 3, 8), card)
+    with pytest.raises(TypeError, match="fq must be float32"):
+        t_qr._check("fq", torch.zeros(4, dtype=torch.float64), (4,),
+                    dw.device)
+    with pytest.raises(ValueError, match=r"fq must have shape \(4,\)"):
+        t_qr._check("fq", torch.zeros(3), (4,), dw.device)
+    with pytest.raises(ValueError, match="dw must be contiguous"):
+        t_qr._check("dw", dw.transpose(0, 2), (8, 3, 4), dw.device)
+    assert t_qr._check.__module__ == t_qr.__name__
+
+
+def _qr_plan(vec, cluster, threads, C):
+    return t_qr.Plan(vec, cluster, threads, C * cluster)
+
+
+@pytest.mark.parametrize("C,P,F,aligned,want", [
+    (10, 36, 256, True, _qr_plan(True, 1, 576, 10)),     # the host loop's
+    (16, 1024, 256, True, _qr_plan(True, 8, 512, 16)),   # the reference's
+    (30, 36, 256, True, _qr_plan(True, 1, 576, 30)),     # vmap of S = 3
+    (10, 36, 256, False, _qr_plan(False, 2, 512, 10)),   # a misaligned view
+    (10, 36, 255, True, _qr_plan(True, 1, 576, 10)),     # D % 4 == 0
+    (10, 35, 255, True, _qr_plan(False, 2, 512, 10)),    # D % 4 != 0
+    (10, 64, 256, True, _qr_plan(True, 1, 1024, 10)),    # one step, 1,024
+    (10, 65, 256, True, _qr_plan(True, 1, 512, 10)),     # past one step
+    (10, 129, 256, True, _qr_plan(True, 2, 512, 10)),    # past SPAN units
+    (4, 3, 2500, True, _qr_plan(True, 1, 480, 4)),
+    (3, 5, 33, True, _qr_plan(False, 1, 64, 3)),
+    (1, 1, 256, True, _qr_plan(True, 1, 32, 1)),
+    (65536, 1, 1, True, _qr_plan(False, 1, 32, 65536)),  # past grid.y
+    (5, 0, 256, True, _qr_plan(True, 1, 32, 5))])        # empty rows
+def test_qfed_reweight_plan(C, P, F, aligned, want):
+    """16-byte units only where D % 4 == 0 and the rows are aligned; a
+    row of at most ONE_STEP units in one CTA, in one step of UNROLL
+    units a thread; a longer row over K CTAs of at most MAX_THREADS, K
+    doubling while a CTA would take more than SPAN units, up to 8;
+    clients on grid.x, so C past 65,535 takes C * K CTAs."""
+    assert t_qr.plan(C, P * F, aligned) == want
+
+
+@pytest.mark.parametrize("D", [9216, 262144, 9180, 1])
+def test_qfed_reweight_plan_follows_the_row_alone(D):
+    """K, the CTA size and the unit width do not depend on C, so that a
+    vmapped call (C -> S * C) sums each row in its single call's order;
+    a grid past 2^31 - 1 CTAs is refused."""
+    plans = {t_qr.plan(C, D, True)[:3] for C in (1, 10, 270, 2 ** 20)}
+    assert len(plans) == 1
+    with pytest.raises(ValueError, match="more CTAs than a grid has"):
+        t_qr.plan(2 ** 31, D, True)
 
 
 # ---------------------------------------------------------------------------
