@@ -11,8 +11,9 @@ each against its plain PyTorch version on the card, drives the main
 paths (the quickstart's federated rounds, the paper's bursty-loss grid
 as one scenario-batched sweep, the corruption-tolerance grid of fault
 rate x defense, the full-duplex recovery grid of recovery policy x
-loss rate, the protocol layer's host-loop round, and greedy serving of
-qwen1.5-4b and starcoder2-15b at full width) through the kernels,
+loss rate, the protocol layer's host-loop round, greedy serving of
+qwen1.5-4b and starcoder2-15b at full width, and the paper's pFedMe,
+Per-FedAvg, AFL and SCAFFOLD cells) through the kernels,
 compares the card's runs with the CPU's, times the kernels, and ends
 with a one-line JSON verdict. Any failed check exits non-zero; with no card it exits
 non-zero at once and prints no result.
@@ -104,7 +105,9 @@ Phases:
                 and bf16 and robust_agg with trim_k = 17 at C = 40 too;
                 and profiles of quickstart rounds, of grid
                 rounds, of defended grid rounds, of recovery grid rounds
-                and of host-loop rounds (FedAvg and q-FedAvg);
+                and of host-loop rounds (FedAvg and q-FedAvg), of pFedMe
+                and SCAFFOLD rounds (TRA 10%) and of the 3-cell pFedMe
+                grid's rounds; uplink_fused at SCAFFOLD's (10, 72, 256);
                 qfed_reweight's device time summed over every device
                 op of a call, beside torch.mul of delta alone
   9. protocol   (runs before 8) packet_mask bitwise vs packet_mask_ref
@@ -157,6 +160,27 @@ Phases:
                 long bf16 caches (T = 32,768) and the GQA one in f32,
                 beside the plain version and
                 scaled_dot_product_attention
+ 11. algorithms (runs before 8) the grid axes past 65,535
+                (tests/_torch_wide_cases.py): uplink_fused_batched,
+                robust_agg_batched and tra_agg_batched at S = 65,536,
+                flash_decode at B = 65,536 and KV = 65,536, each scenario
+                or slice bitwise the launches that hold it below the
+                limit; uplink_fused at SCAFFOLD's (10, 72, 256) against
+                uplink_ref, every debias mode x EF x dtype. Then through
+                FederatedServer, 40 rounds each, the counts set to 0
+                just before and read just after (one uplink_fused a
+                round): Fig. 9's pFedMe biased 70% and TRA 10% (N=30,
+                C=10, 10 local steps; global and personalized reports,
+                TRA's global accuracy held above the biased one's),
+                Fig. 5's Per-FedAvg at eligible ratio 100% and 70%, and
+                AFL and SCAFFOLD with TRA 10%; the 3-cell pFedMe TRA grid
+                {0.1, 0.2, 0.3} through run_grid (one
+                uplink_fused_batched a round); and 5 rounds of each
+                algorithm (TRA 10%, EF) on the card and the CPU: cohorts
+                equal, each round from the CPU's state at the parity
+                tolerances (params, SCAFFOLD's variates, AFL's weights,
+                EF at 2·D for SCAFFOLD), the personalize step from the
+                CPU's model on the same batches
 """
 from __future__ import annotations
 
@@ -178,6 +202,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.core import client_updates as cu  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.lossbudget import LossBudgetConfig  # noqa: E402
 from repro_torch.core.mlp import mlp_init, mlp_weighted_loss  # noqa: E402
@@ -188,7 +213,8 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core.tra import (DEBIAS_MODES, TRAConfig,  # noqa: E402
                                   sufficiency_report)
 from repro_torch.data.synthetic import (generate_synthetic,  # noqa: E402
-                                        padded_eval_set, stage_on_device)
+                                        padded_eval_set, sample_batches,
+                                        stage_on_device)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.common import DENOM_EPS  # noqa: E402
 from repro_torch.kernels.fec_recover import fec_recover as fc  # noqa: E402
@@ -235,6 +261,8 @@ from repro_torch.utils.guards import assert_finite_tree  # noqa: E402
 sys.path.insert(1, os.path.join(ROOT, "tests"))
 from _torch_channel_cases import (FEC_G, GE_VARIANTS, MASK_P,  # noqa: E402
                                   SEEDS, fec_case, ge_case)
+# the grid axes past 65,535 and SCAFFOLD's uplink shape, shared likewise
+import _torch_wide_cases as wide  # noqa: E402
 
 # H100 SXM HBM3 rate (NVIDIA data sheet); the byte bound divides by it
 HBM_BYTES_PER_S = 3.35e12
@@ -324,6 +352,7 @@ FD_CASES = (
 FD_PATH_SHAPE = (2, 20, 1, 128, 25)     # B, KV, G, dh, T of the serve
 FD_GQA_PATH_SHAPE = (2, 4, 12, 128, 25)  # the starcoder2-15b serve's
 FD_LONG_SHAPES = ((8, 20, 1, 128, 32768), (8, 4, 12, 128, 32768))
+ALGO_ROUNDS = 40                # the Fig. 9, Fig. 5 and `beyond` cells
 
 
 def fail(msg: str) -> None:
@@ -1945,19 +1974,25 @@ QFED_CASES = ((10, 36, 255), (4, 3, 2500), (3, 5, 33), (1, 36, 256),
               (10, 36, 0))
 
 
-def qfed_device_ops(fn, reps=10):
+def qfed_device_ops(fn, reps=10, tries=3):
     """The device ops of ``reps`` calls of ``fn`` by name, from
-    torch.profiler."""
+    torch.profiler. A profile that recorded no device event at all
+    measured nothing (the profiler drops events, at times all of them):
+    it is taken again, up to ``tries`` times."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {ev.key: ev.count for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.self_device_time_total > 0}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0}
+        if ops:
+            break
+    return ops
 
 
 def check_qfed_kernel(dev):
@@ -2476,6 +2511,264 @@ def run_serve_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+def fig9_inputs():
+    """examples/personalization_pfedme.py's data and networks."""
+    rng = np.random.default_rng(1)
+    data = generate_synthetic(rng, n_clients=30, alpha=0.5, beta=0.5)
+    return data, sample_networks(rng, data.n_clients)
+
+
+def bench_inputs(alpha, beta):
+    """benchmarks/common.py's data (seed 7, N = 30) and its strictly
+    ordered networks, for the Fig. 5 and `beyond` cells."""
+    data = generate_synthetic(np.random.default_rng(7), n_clients=30,
+                              alpha=alpha, beta=beta)
+    return data, ClientNetworks(np.linspace(0.5, 24.0, 30),
+                                np.full(30, 0.05))
+
+
+def algo_cfg(algo, n_rounds, *, tra=None, **kw):
+    """benchmarks/common.py's cell: C = 10, 10 local steps, lr 0.1 (0.05
+    for SCAFFOLD), TRA off unless given."""
+    return FLConfig(algo=algo, n_rounds=n_rounds, clients_per_round=10,
+                    local_steps=10, eval_every=10 ** 6,
+                    lr=0.05 if algo == "scaffold" else 0.1,
+                    tra=TRAConfig(enabled=False) if tra is None
+                    else TRAConfig(enabled=True, loss_rate=tra), **kw)
+
+
+ALGO_CELLS = (
+    # label, algo, inputs, config
+    ("fig9 pFedMe biased 70%", "pfedme", "fig9",
+     dict(selection="ratio", eligible_ratio=0.7)),
+    ("fig9 TRA-pFedMe 10%", "pfedme", "fig9", dict(tra=0.1)),
+    ("fig5 Per-FedAvg ratio 100%", "perfedavg", "b55", dict()),
+    ("fig5 Per-FedAvg ratio 70%", "perfedavg", "b55",
+     dict(selection="ratio", eligible_ratio=0.7)),
+    ("beyond AFL TRA 10%", "afl", "b11", dict(tra=0.1)),
+    ("beyond SCAFFOLD TRA 10%", "scaffold", "b11", dict(tra=0.1)),
+)
+ALGO_GRID_RATES = (0.1, 0.2, 0.3)
+
+
+def algo_inputs():
+    return {"fig9": fig9_inputs(), "b55": bench_inputs(0.5, 0.5),
+            "b11": bench_inputs(1.0, 1.0)}
+
+
+def run_algo_cells(card, inputs):
+    """The cells of ALGO_CELLS through FederatedServer on the card, each
+    after a 2-round warm-up of its algorithm, with the counts set to 0
+    just before and read just after: one uplink_fused a round. Returns
+    {label: (rounds/s, global report, personalized report or None)}."""
+    out = {}
+    for label, algo, key, kw in ALGO_CELLS:
+        data, nets = inputs[key]
+        FederatedServer(algo_cfg(algo, 2, **kw), data, nets,
+                        device="cuda").run()
+        server = FederatedServer(algo_cfg(algo, ALGO_ROUNDS, **kw), data,
+                                 nets, device="cuda")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        hist = server.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        if got != expect(uplink_fused=ALGO_ROUNDS):
+            fail(f"{label}: launches {got}, expected {ALGO_ROUNDS} single "
+                 f"uplink launches and no other")
+        losses = [h.train_loss for h in hist]
+        if len(losses) != ALGO_ROUNDS or not all(map(math.isfinite,
+                                                     losses)):
+            fail(f"{label}: bad loss trajectory {losses}")
+        assert_finite_tree(server.params, label)
+        if algo == "scaffold":
+            st = server._state
+            assert_finite_tree({"c_global": st.c_global, "c_i": st.c_i},
+                               label)
+            if st.c_global.shape != (PROTOCOL_D,) \
+                    or st.c_i.shape != (30, PROTOCOL_D):
+                fail(f"{label}: SCAFFOLD's variates of the wrong shape")
+        if algo == "afl" and abs(float(server._state.lam.sum()) - 1) > 1e-5:
+            fail(f"{label}: AFL weights do not sum to 1")
+        g = server.evaluate()
+        p = server.evaluate_personalized() \
+            if algo in ("pfedme", "perfedavg") else None
+        if hist[-1].report is None or (p is not None
+                                       and hist[-1].personalized is None):
+            fail(f"{label}: run() left no final report")
+        out[label] = (ALGO_ROUNDS / secs, g, p)
+        print(f"[algos] {label:27s} global acc={g.average * 100:5.1f}% "
+              f"worst10%={g.worst10 * 100:5.1f}%"
+              + (f" personalized={p.average * 100:5.1f}%" if p else "")
+              + f" loss {losses[0]:.4f}->{losses[-1]:.4f} "
+              f"{ALGO_ROUNDS / secs:.1f} rounds/s, launches {got} | {card}",
+              flush=True)
+    gb = out["fig9 pFedMe biased 70%"][1]
+    gt = out["fig9 TRA-pFedMe 10%"][1]
+    print(f"[algos] Fig. 9: TRA lifts pFedMe's global model "
+          f"{(gt.average - gb.average) * 100:+.1f}pp over 70% threshold "
+          f"selection", flush=True)
+    # the figure's claim: TRA recovers the global model that threshold
+    # selection degrades
+    if gt.average <= gb.average:
+        fail("Fig. 9: TRA-pFedMe's global accuracy is not above biased "
+             "pFedMe's")
+    return out
+
+
+def run_algo_grid(card, data, nets):
+    """The 3-cell pFedMe TRA grid {0.1, 0.2, 0.3} through run_grid, one
+    uplink_fused_batched a round. Returns cell-rounds/s."""
+    cfgs = [algo_cfg("pfedme", ALGO_ROUNDS, tra=r) for r in ALGO_GRID_RATES]
+    run_grid([algo_cfg("pfedme", 2, tra=r) for r in ALGO_GRID_RATES], data,
+             nets)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    hists = run_grid(cfgs, data, nets)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    check_histories("pFedMe grid", hists, ALGO_ROUNDS, len(cfgs))
+    if got != expect(uplink_fused_batched=ALGO_ROUNDS):
+        fail(f"pFedMe grid launches {got}, expected {ALGO_ROUNDS} batched "
+             f"uplink launches and no other")
+    rate = len(cfgs) * ALGO_ROUNDS / secs
+    print(f"[algos] pFedMe TRA grid, {len(cfgs)} cells x {ALGO_ROUNDS} "
+          f"rounds through run_grid: {secs:.3f} s, {rate:.1f} "
+          f"cell-rounds/s ({ALGO_ROUNDS / secs:.1f} grid rounds/s), global "
+          f"acc " + " / ".join(f"{h[-1].report.average * 100:.1f}%"
+                               for h in hists)
+          + f", launches {got} | {card}", flush=True)
+    return rate
+
+
+ALGO_STATE = ("ef_mem", "lam", "c_global", "c_i")
+
+
+def check_algo_card_vs_cpu(inputs):
+    """PARITY_ROUNDS rounds of each algorithm, TRA 10% with EF, on the card
+    and the CPU from one seed: cohorts equal free-running, and each round
+    from the CPU's state at the parity tolerances (params, SCAFFOLD's
+    variates, AFL's weights, the EF memory at 2·D for SCAFFOLD); then the
+    personalize step of pFedMe and Per-FedAvg from the CPU's final model
+    on the same batches."""
+    data, nets = inputs["b11"]
+    for algo in ("pfedme", "perfedavg", "afl", "scaffold"):
+        cfg = algo_cfg(algo, PARITY_ROUNDS, tra=0.1, error_feedback=True)
+        srv = {dev: FederatedServer(cfg, data, nets, device=dev)
+               for dev in ("cuda", "cpu")}
+        free = {dev: s._state for dev, s in srv.items()}
+        forced = free["cpu"]
+        worst = worst_loss = 0.0
+        for t in range(PARITY_ROUNDS):
+            logs = {}
+            for dev, s in srv.items():
+                free[dev], logs[dev] = s.engine.run_block(free[dev], t, 1)
+            if not np.array_equal(logs["cuda"]["ids"], logs["cpu"]["ids"]):
+                fail(f"{algo}: cohorts differ between cuda and cpu at "
+                     f"round {t}")
+            on_card, lg = srv["cuda"].engine.run_block(
+                to_device(forced, "cuda"), t, 1)
+            forced, lc = srv["cpu"].engine.run_block(forced, t, 1)
+            pairs = [(grid_params(on_card, 1), grid_params(forced, 1))] + [
+                (getattr(on_card, n).cpu().numpy(),
+                 getattr(forced, n).numpy()) for n in ALGO_STATE]
+            for (a, b), name in zip(pairs, ("params",) + ALGO_STATE):
+                np.testing.assert_allclose(
+                    a, b, rtol=1e-4, atol=1e-5,
+                    err_msg=f"{algo} round {t} {name}")
+                if a.size:
+                    worst = max(worst, float(np.abs(a - b).max()))
+            np.testing.assert_allclose(lg["loss"], lc["loss"], rtol=1e-5)
+            worst_loss = max(worst_loss,
+                             float(np.abs(lg["loss"] - lc["loss"]).max()))
+        extra = ""
+        if algo in cu.PERSONALIZE_FNS:
+            X, Y = sample_batches(np.random.default_rng(5), data,
+                                  np.arange(data.n_clients), cfg.pfedme_K,
+                                  cfg.batch_size)
+            fn, hyper = cu.PERSONALIZE_FNS[algo], cfg.hyper()
+            per = {}
+            for dev in ("cuda", "cpu"):
+                p = torch.func.vmap(lambda q, x, y: fn(q, x, y, hyper),
+                                    in_dims=(None, 0, 0))(
+                    {k: v.to(dev) for k, v in forced.params.items()},
+                    torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev))
+                per[dev] = np.concatenate(
+                    [p[k].cpu().numpy().reshape(data.n_clients, -1)
+                     for k in sorted(p)], axis=1)
+            np.testing.assert_allclose(per["cuda"], per["cpu"], rtol=1e-4,
+                                       atol=1e-5,
+                                       err_msg=f"{algo} personalize")
+            extra = (f"; personalized params max |diff| "
+                     f"{np.abs(per['cuda'] - per['cpu']).max():.3e}")
+        print(f"[parity] {algo}, cuda vs cpu, {PARITY_ROUNDS} rounds (TRA "
+              f"10%, EF): cohorts equal every round; round by round from "
+              f"the cpu state, max |param or carry diff| {worst:.3e}, max "
+              f"|loss diff| {worst_loss:.3e}{extra}", flush=True)
+
+
+def check_wide_axes(dev):
+    """The grid axes past 65,535 (tests/_torch_wide_cases.py): each
+    scenario, or (b, kv) slice, bitwise the launches that hold it below
+    the limit; and the uplink at SCAFFOLD's (10, 72, 256) against
+    uplink_ref. Returns the largest uplink error at that shape."""
+    for per_coord in (False, True):
+        n, e = wide.uplink_wide(dev, per_coord=per_coord, use_ef=True)
+        print(f"[wide] uplink_fused_batched S=65,536 (per_coord="
+              f"{per_coord}, EF, ssq): {n} launches, bitwise the 65,535 + "
+              f"1 launches and {len(wide.SAMPLE)} single ones; max |agg "
+              f"err| vs plain {e:.3e}", flush=True)
+    for trim_k, use_ef in ((0, True), (2, False)):
+        n, e = wide.robust_wide(dev, trim_k=trim_k, use_ef=use_ef)
+        print(f"[wide] robust_agg_batched S=65,536 (trim_k={trim_k}, "
+              f"EF={use_ef}, NaN/Inf planted): {n} launches, bitwise; max "
+              f"|agg err| vs plain {e:.3e}", flush=True)
+    n, e = wide.tra_wide(dev)
+    print(f"[wide] tra_agg_batched S=65,536: {n} launches, bitwise; max "
+          f"|err| vs plain {e:.3e}", flush=True)
+    for axis, T, dtype in (("B", 1, torch.float32), ("B", 1, torch.bfloat16),
+                           ("B", 3, torch.float32),
+                           ("KV", 1, torch.float32)):
+        n, e = wide.flash_wide(dev, axis=axis, T=T, dtype=dtype)
+        print(f"[wide] flash_decode {axis}=65,536 T={T} {str(dtype)[6:]}: "
+              f"{n} launches, bitwise; max |err| vs plain {e:.3e}",
+              flush=True)
+    err = 0.0
+    for mode, use_ef, dtype in itertools.product(
+            DEBIAS_MODES, (False, True), (torch.float32, torch.bfloat16)):
+        err = max(err, wide.uplink_scaffold(dev, mode=mode, use_ef=use_ef,
+                                            dtype=dtype))
+    print(f"[wide] uplink_fused at SCAFFOLD's {wide.SCAFFOLD_SHAPE} "
+          f"(d_up = {wide.SCAFFOLD_D_UP}): every debias mode x EF x dtype "
+          f"matches uplink_ref; max |agg err| {err:.3e}", flush=True)
+    return err
+
+
+def run_algo_phase(card):
+    """Phase 11: the grid axes past 65,535 and SCAFFOLD's uplink shape;
+    the paper's Fig. 9, Fig. 5 and `beyond` cells of pFedMe, Per-FedAvg,
+    AFL and SCAFFOLD through FederatedServer; the 3-cell pFedMe grid
+    through run_grid; each algorithm on the card against the CPU.
+    Returns (rounds/s by cell label, grid cell-rounds/s, the largest
+    uplink error at SCAFFOLD's shape)."""
+    t_phase = time.perf_counter()
+    err = check_wide_axes(torch.device("cuda"))
+    inputs = algo_inputs()
+    cells = run_algo_cells(card, inputs)
+    grid_rate = run_algo_grid(card, *inputs["fig9"])
+    check_algo_card_vs_cpu(inputs)
+    print(f"[algos] the algorithms phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: v[0] for k, v in cells.items()}, grid_rate, err
+
+
+# ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
 def median_ms(fn, reps=100, warmup=10):
@@ -2932,6 +3225,45 @@ def profile_rounds(card, n=5):
     print_profile(f"{n} quickstart TRA rounds | {card}", prof, wall_ms, n)
 
 
+def profile_algo_rounds(card, algo, n=5):
+    """Device busy share and top kernels over ``n`` rounds of ``algo`` at
+    its phase-11 cell (TRA 10%; SCAFFOLD uploads 2·D, 72 packets)."""
+    data, nets = fig9_inputs() if algo == "pfedme" \
+        else bench_inputs(1.0, 1.0)
+    server = FederatedServer(algo_cfg(algo, n + 2, tra=0.1), data, nets,
+                             device="cuda")
+    state = server.engine.init_state(server.params)
+    state, _ = server.engine.run_block(state, 0, 2)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = server.engine.run_block(state, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} {algo} TRA 10% rounds | {card}", prof, wall_ms, n)
+
+
+def profile_algo_grid(card, n=5):
+    """Device busy share and top kernels over ``n`` rounds of the 3-cell
+    pFedMe TRA grid."""
+    data, nets = fig9_inputs()
+    eng = SweepEngine.from_configs(
+        [algo_cfg("pfedme", n + 2, tra=r) for r in ALGO_GRID_RATES], data,
+        nets)
+    st = eng.init_states()
+    st, _ = eng.run_block(st, 0, 2)                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = eng.run_block(st, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} pFedMe TRA grid rounds (3 cells) | {card}", prof,
+                  wall_ms, n)
+
+
 def profile_host_loop(card, n=5, algo="fedavg"):
     """Device busy share and top kernels over ``n`` host-loop rounds
     (10 local steps of 32): FedAvg with the sufficiency report, or the
@@ -2989,7 +3321,9 @@ def main() -> int:
     qfed_err = check_qfed_kernel(dev)
     proto_counts = run_protocol_phase(card)
     fd_launches, fd_err, fd_t = run_serve_phase(card)
+    run_algo_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
+    time_uplink(wide.SCAFFOLD_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
     for dtype in (torch.float32, torch.bfloat16):
         time_uplink(TILE_SHAPE, card, use_ef=True, dtype=dtype)
@@ -3018,6 +3352,9 @@ def main() -> int:
     profile_recovery_grid(card)
     profile_host_loop(card)
     profile_host_loop(card, algo="qfedavg")
+    profile_algo_rounds(card, "pfedme")
+    profile_algo_rounds(card, "scaffold")
+    profile_algo_grid(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [

@@ -46,9 +46,9 @@ def net_state_from_jax(net, device) -> NetSimState:
 def engine_state_from_jax(state, device) -> EngineState:
     """The reference's ``EngineState`` (fields as arrays) -> the port's:
     params, EF memory, AFL weights, simulator state (the downlink chain
-    included), the fault model's echo memory, the stale-model buffer and
-    the loss-budget controller's carries, single or stacked along a
-    scenario axis. The reputation memory is carried over only as the
+    included), the fault model's echo memory, the stale-model buffer,
+    the loss-budget controller's carries and SCAFFOLD's control
+    variates, single or stacked along a scenario axis. The reputation memory is carried over only as the
     (0,) the port holds: the policy that reads it is not ported."""
     rep = np.asarray(state.rep_mem)
     if rep.size:
@@ -66,7 +66,8 @@ def engine_state_from_jax(state, device) -> EngineState:
         net=net_state_from_jax(state.net, device),
         echo_mem=f32(state.echo_mem), rep_mem=f32(rep),
         stale_model=f32(state.stale_model), bud_level=f32(state.bud_level),
-        bud_loss=f32(state.bud_loss))
+        bud_loss=f32(state.bud_loss), c_global=f32(state.c_global),
+        c_i=f32(state.c_i))
 
 
 def model_params_from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:

@@ -19,9 +19,11 @@ One round is:
                    chain through ``kernels/netsim_mask``) and each
                    client fills the holes from its last-received model
                    (``stale_model``) or with zeros,
-  * local train  — FedAvg / q-FedAvg SGD, ``torch.func.vmap``ped over
-                   the cohort, from the shared model or, under downlink
-                   loss, from each client's own effective model,
+  * local train  — the algorithm's client (FedAvg, q-FedAvg, AFL,
+                   pFedMe, Per-FedAvg or SCAFFOLD), ``torch.func.vmap``ped
+                   over the cohort, from the shared model or, under
+                   downlink loss, from each client's own effective model;
+                   SCAFFOLD uploads ``dw ++ dc``, 2·D floats,
   * faults       — with ``faults.enabled``, client faults (echo
                    replay, sign flip, NaN failure) on the trained
                    uploads, from ``fold_in(round key, FAULT_FOLD)``,
@@ -42,8 +44,11 @@ One round is:
                    ``robust_uplink_round`` call instead: the finite
                    screen, norm clip and trimmed mean as gates (the
                    robust-aggregation kernel on the card),
-  * server step  — FedAvg's weighted mean or q-FedAvg's h-normalised
-                   step; then the stale-model and controller carries.
+  * server step  — the weighted mean (FedAvg, Per-FedAvg, and AFL with
+                   its mixture weights), pFedMe's beta mix, q-FedAvg's
+                   h-normalised step or SCAFFOLD's model and control-
+                   variate steps; AFL's weights ascend on the new model's
+                   losses; then the stale-model and controller carries.
 
 Scenario-varying inputs ride a ``ScenarioCtx`` argument, never the
 step's closure, so ``core/sweep.py`` can stack S scenarios behind a
@@ -55,7 +60,7 @@ on/off, error feedback, the netsim model selection, ``faults.enabled``,
 ``lossbudget.enabled``) stays in the closure and must be shared across a
 sweep.
 
-This slice ports the reference's round with: fedavg and qfedavg,
+This port runs the reference's round with: all six algorithms,
 uniform selection, the sync server, the iid and Gilbert–Elliott
 channels, the AR(1) bandwidth walk, the deadline, the fault model with
 its defenses, the downlink model, the recovery policies and the
@@ -77,6 +82,7 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.core import client_updates as cu
 from repro_torch.core import lossbudget as bud_mod
+from repro_torch.core.mlp import mlp_weighted_loss
 from repro_torch.core.selection import select_from_uniforms
 from repro_torch.core.tra import flatten_clients, unflatten_like
 from repro_torch.data.synthetic import DeviceDataset, stage_on_device
@@ -94,18 +100,19 @@ from repro_torch.netsim.delivery import (deadline_delivered,
 from repro_torch.netsim.state import NetSimState, init_net_state
 from repro_torch.network.packets import n_packets
 
-ENGINE_ALGOS = ("fedavg", "qfedavg")
+ENGINE_ALGOS = ("fedavg", "qfedavg", "pfedme", "perfedavg", "afl",
+                "scaffold")
 
 
 class EngineState(NamedTuple):
     """Per-run state threaded through the rounds."""
     params: Dict[str, torch.Tensor]   # model parameters, leaf order
-    ef_mem: torch.Tensor   # (N, D) error-feedback memory, or (0,)
+    ef_mem: torch.Tensor   # (N, D_up) error-feedback memory, or (0,)
     lam: torch.Tensor      # (N,) AFL mixture weights (always allocated)
     net: NetSimState       # channel states + log-bandwidth levels
     # fault-model carries; (0,) when faults.enabled is False:
     # the last genuine upload of each client, what an echo replays
-    echo_mem: torch.Tensor  # (N, D) f32, or (0,)
+    echo_mem: torch.Tensor  # (N, D_up) f32, or (0,)
     # the reputation memory of the reputation_aware selection policy,
     # which is not ported: always (0,)
     rep_mem: torch.Tensor   # (0,)
@@ -117,6 +124,10 @@ class EngineState(NamedTuple):
     # realized-loss EMA; (0,) unless lossbudget.enabled
     bud_level: torch.Tensor    # (N,) f32, or (0,)
     bud_loss: torch.Tensor     # (N,) f32, or (0,)
+    # SCAFFOLD's control variates, (0,) for the other algorithms (last,
+    # so that the carries of the earlier steps keep their positions)
+    c_global: torch.Tensor     # (D,) the server variate, or (0,)
+    c_i: torch.Tensor          # (N, D) the client variates, or (0,)
 
 
 class ScenarioCtx(NamedTuple):
@@ -265,11 +276,10 @@ def validate_device_config(cfg, device) -> None:
 
 def validate_round_config(cfg) -> None:
     """Raise for configurations the reference refuses and for those
-    this slice has not ported."""
+    the port has not ported."""
     if cfg.algo not in ENGINE_ALGOS:
-        raise NotImplementedError(
-            f"algo {cfg.algo!r} is not ported to repro_torch yet "
-            f"(ported: {ENGINE_ALGOS})")
+        raise ValueError(f"unknown algo {cfg.algo!r} (one of "
+                         f"{ENGINE_ALGOS})")
     if not cfg.sel.traced and cfg.sel.policy == "recovery_pressure" \
             and not cfg.lossbudget.enabled:
         raise ValueError(
@@ -326,6 +336,10 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
     params = {k: v.detach().clone() for k, v in params.items()}
     dev = next(iter(params.values())).device
     D = sum(v.numel() for v in params.values())
+    # SCAFFOLD uploads (dw ++ dc) on one TRA stream, so its EF and echo
+    # memories cover the 2·D vector
+    scaffold = cfg.algo == "scaffold"
+    up_dim = 2 * D if scaffold else D
     ns = cfg.netsim if netsim is None else netsim
 
     def per_client(on, cols=()):
@@ -339,18 +353,20 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
                                  device=dev)
     return EngineState(
         params=params,
-        ef_mem=per_client(cfg.error_feedback, (D,)),
+        ef_mem=per_client(cfg.error_feedback, (up_dim,)),
         lam=torch.ones((n_clients,), device=dev) / n_clients,
         net=init_net_state(ns, n_clients, device=dev, base_key=base_key,
                            loss_rate=loss_rate, upload_mbps=upload_mbps),
-        echo_mem=per_client(cfg.faults.enabled, (D,)),
+        echo_mem=per_client(cfg.faults.enabled, (up_dim,)),
         rep_mem=torch.zeros((0,), device=dev),
         # every client starts having received the initial broadcast
         stale_model=flatten_clients(params, 1).expand(n_clients, D).clone()
         if ns.down_channel != "off" and ns.down_fallback == "stale"
         else torch.zeros((0,), device=dev),
         bud_level=per_client(cfg.lossbudget.enabled),
-        bud_loss=per_client(cfg.lossbudget.enabled))
+        bud_loss=per_client(cfg.lossbudget.enabled),
+        c_global=torch.zeros((D if scaffold else 0,), device=dev),
+        c_i=per_client(scaffold, (D,)))
 
 
 def make_round_step(cfg, cohort: int):
@@ -367,11 +383,24 @@ def make_round_step(cfg, cohort: int):
     steps, bs = cfg.local_steps, cfg.batch_size
     Fp = tra_cfg.packet_floats
     debias = tra_cfg.debias
-    local = cu.LOCAL_FNS[algo]
-    train = torch.func.vmap(lambda p, x, y: local(p, x, y, hyper),
-                            in_dims=(None, 0, 0))
-    # under downlink loss each client trains from its own parameters
-    train_own = torch.func.vmap(lambda p, x, y: local(p, x, y, hyper))
+    scaffold = algo == "scaffold"
+    if scaffold:
+        # SCAFFOLD's client also takes the server variate (shared) and
+        # its own variate (the cohort's rows), both flat
+        def local(p, x, y, cg_vec, ci_vec):
+            return cu.scaffold_local(p, x, y, unflatten_like(cg_vec, p),
+                                     unflatten_like(ci_vec, p), hyper)
+        train = torch.func.vmap(local, in_dims=(None, 0, 0, None, 0))
+        # under downlink loss each client trains from its own parameters
+        train_own = torch.func.vmap(local, in_dims=(0, 0, 0, None, 0))
+    else:
+        local_fn = cu.LOCAL_FNS[algo]
+        train = torch.func.vmap(lambda p, x, y: local_fn(p, x, y, hyper),
+                                in_dims=(None, 0, 0))
+        train_own = torch.func.vmap(
+            lambda p, x, y: local_fn(p, x, y, hyper))
+    # AFL's losses of the new model on each cohort client's staged data
+    afl_losses = torch.func.vmap(mlp_weighted_loss, in_dims=(None, 0, 0, 0))
     ns = cfg.netsim
     use_ge = ns.channel == "gilbert_elliott"
     use_bw = ns.bw_ar1
@@ -397,7 +426,8 @@ def make_round_step(cfg, cohort: int):
         N = dd.counts.shape[0]
         params = state.params
         old_vec = flatten_clients(params, 1)[0]
-        D_up = old_vec.shape[0]
+        D_model = old_vec.shape[0]
+        D_up = 2 * D_model if scaffold else D_model
         P = n_packets(D_up, Fp)
         n_batch = C * steps * bs
         # the GE channel's emission draws are a second (C, P) block
@@ -410,9 +440,9 @@ def make_round_step(cfg, cohort: int):
         # and the parity blocks.
         gn = rec_mod.fec_groups(P, rec_group) if use_rec else 0
         n_rec = C * P + C * gn if use_rec else 0
-        # the broadcast is the model, which FedAvg and q-FedAvg upload
-        # too: P packets each way
-        P_dn = P
+        # the broadcast is the model, D_model floats (SCAFFOLD's control
+        # variate goes losslessly, as the reference's simplification)
+        P_dn = n_packets(D_model, Fp)
         n_down = (2 * C * P_dn if down_ge else C * P_dn) if use_down else 0
         # one threefry invocation covers the whole round
         key = prng.fold_in(ctx.base_key, t)
@@ -449,6 +479,7 @@ def make_round_step(cfg, cohort: int):
         # its last-received model ("stale") or with zeros, then trains
         # from that effective model
         net_down = state.net.down
+        sc_args = (state.c_global, state.c_i[ids]) if scaffold else ()
         if use_down:
             if down_ge:
                 dp_gb, dp_bg = ge_transition_probs(
@@ -474,15 +505,20 @@ def make_round_step(cfg, cohort: int):
                                   1.0)
                 dmask = dmask * dok[:, None]
             coord_dn = dmask[:, :, None].expand(C, P_dn, Fp) \
-                .reshape(C, P_dn * Fp)[:, :D_up]
+                .reshape(C, P_dn * Fp)[:, :D_model]
             stale_rows = state.stale_model[ids] if down_stale \
-                else torch.zeros((C, D_up), device=u_dt.device)
+                else torch.zeros((C, D_model), device=u_dt.device)
             eff_vec = coord_dn * old_vec[None, :] \
                 + (1.0 - coord_dn) * stale_rows
-            uploads, aux = train_own(unflatten_like(eff_vec, params), X, Y)
+            uploads, aux = train_own(unflatten_like(eff_vec, params), X, Y,
+                                     *sc_args)
         else:
-            uploads, aux = train(params, X, Y)
-        flat = flatten_clients(uploads, C)                   # (C, D)
+            uploads, aux = train(params, X, Y, *sc_args)
+        if scaffold:
+            dc = flatten_clients(uploads["dc"], C)           # (C, D)
+            flat = torch.cat([flatten_clients(uploads["dw"], C), dc], 1)
+        else:
+            flat = flatten_clients(uploads, C)               # (C, D)
 
         # client faults: what the cohort actually uploads. Their own fold
         # of the round key leaves the round's draws untouched; zero rates
@@ -601,6 +637,8 @@ def make_round_step(cfg, cohort: int):
             fq = torch.pow(aux["loss0"] + eps, cfg.q)
             w_agg = torch.ones(C, device=xp.device)
             mult, want_ssq = fq, True
+        elif algo == "afl":
+            w_agg, mult, want_ssq = state.lam[ids], None, False
         else:
             w_agg, mult, want_ssq = weights, None, False
         # the controller reads the masked norms as its divergence signal
@@ -627,15 +665,36 @@ def make_round_step(cfg, cohort: int):
         new_ef = state.ef_mem.index_copy(0, ids, new_ef_rows) if ef \
             else state.ef_mem
 
-        if algo == "qfedavg":
+        c_global, c_i, lam = state.c_global, state.c_i, state.lam
+        if scaffold:
+            new_vec = old_vec + agg[:D_model]
+            c_global = c_global + (C / N) * agg[D_model:]
+            # each client's variate moves by its own dc, not the delivered
+            c_i = c_i.index_copy(0, ids, c_i[ids] + dc)
+        elif algo == "qfedavg":
             # delta_k = F_k^q dw_k;  h_k = q F^(q-1)||dw||^2 + L F^q
             h = cfg.q * torch.pow(aux["loss0"] + eps, cfg.q - 1) * ssq \
                 + cfg.lipschitz * fq
             # debiased SUM of deltas = debiased mean * C
             new_vec = old_vec - agg * C / torch.clamp(h.sum(), min=1e-8)
-        else:  # fedavg: weighted mean of the uploaded models
+        elif algo == "pfedme":
+            new_vec = (1 - cfg.pfedme_beta) * old_vec \
+                + cfg.pfedme_beta * agg
+        else:  # fedavg, perfedavg, afl: weighted mean of uploaded models
             new_vec = agg
         new_params = unflatten_like(new_vec, params)
+        if algo == "afl":
+            # projected gradient ascent on the clients' losses (minimax)
+            # at the new model, over each cohort client's first staged
+            # samples, the padding masked out
+            L = min(64, dd.train_x.shape[1])
+            msk = (torch.arange(L, device=counts.device)[None, :]
+                   < counts[:, None]).float()
+            losses = afl_losses(new_params, dd.train_x[ids, :L],
+                                dd.train_y[ids, :L], msk)
+            lam = torch.clamp(lam.index_add(0, ids, cfg.afl_lr_lambda
+                                            * losses), min=0.0)
+            lam = lam / lam.sum()
         # the echo memory records what each client genuinely computed
         echo_new = state.echo_mem.index_copy(0, ids, flat_clean) \
             if use_faults else state.echo_mem
@@ -661,9 +720,9 @@ def make_round_step(cfg, cohort: int):
             # per-cohort-slot arrival: 1 landed on time, 0 dropped
             logs["arrival"] = arrival
         net = NetSimState(net_channel, net_logbw, net_down)
-        return EngineState(new_params, new_ef, state.lam, net, echo_new,
-                           state.rep_mem, stale_new, bud_level,
-                           bud_loss), logs
+        return EngineState(new_params, new_ef, lam, net, echo_new,
+                           state.rep_mem, stale_new, bud_level, bud_loss,
+                           c_global, c_i), logs
 
     return step
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import client_updates as cu
 from repro_torch.core import tra as tra_mod
 from repro_torch.core.engine import (RoundScanEngine,
                                      validate_device_config)
@@ -32,7 +33,8 @@ from repro_torch.core.mlp import mlp_accuracy, mlp_init
 from repro_torch.core.selection import SelectionConfig
 from repro_torch.core.sweep import SweepEngine
 from repro_torch.core.tra import TRAConfig
-from repro_torch.data.synthetic import FederatedDataset, padded_eval_set
+from repro_torch.data.synthetic import (FederatedDataset, padded_eval_set,
+                                        sample_batches)
 from repro_torch.device import resolve_device
 from repro_torch.netsim.config import NetSimConfig
 from repro_torch.netsim.faults import DefenseConfig, FaultConfig
@@ -43,10 +45,10 @@ from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
 
 @dataclasses.dataclass
 class FLConfig:
-    """The reference's top-level run configuration. Sub-configs that
-    later slices bring (server modes, telemetry) are not part of the
-    port yet."""
-    algo: str = "fedavg"              # fedavg|qfedavg (ported)
+    """The reference's top-level run configuration, for all six
+    algorithms. Sub-configs that later slices bring (server modes,
+    telemetry) are not part of the port yet."""
+    algo: str = "fedavg"  # fedavg|qfedavg|pfedme|perfedavg|afl|scaffold
     n_rounds: int = 100
     clients_per_round: int = 10
     local_steps: int = 20
@@ -84,7 +86,7 @@ class FLConfig:
     pfedme_lam: float = 15.0
     pfedme_K: int = 5
     pfedme_eta: float = 0.05
-    pfedme_beta: float = 1.0
+    pfedme_beta: float = 1.0          # server mixing
     perfed_alpha: float = 0.01
     perfed_beta: float = 0.1
     afl_lr_lambda: float = 0.1
@@ -111,6 +113,8 @@ class RoundLog:
     round: int
     train_loss: float
     report: Optional[FairnessReport] = None
+    # pFedMe / Per-FedAvg: the report of the per-client adapted models
+    personalized: Optional[FairnessReport] = None
 
 
 class FederatedServer:
@@ -164,6 +168,18 @@ class FederatedServer:
     def _ef_mem(self) -> np.ndarray:
         return self._state.ef_mem.cpu().numpy()
 
+    @property
+    def _c_global(self) -> np.ndarray:
+        return self._state.c_global.cpu().numpy()
+
+    @property
+    def _c_i(self) -> np.ndarray:
+        return self._state.c_i.cpu().numpy()
+
+    @property
+    def _lambda(self) -> np.ndarray:
+        return self._state.lam.cpu().numpy()      # AFL state
+
     # -- public API ---------------------------------------------------------
     def run_round(self, t: int) -> RoundLog:
         cfg = self.cfg
@@ -171,6 +187,8 @@ class FederatedServer:
         log = RoundLog(t, float(ys["loss"]))
         if (t + 1) % cfg.eval_every == 0 or t == cfg.n_rounds - 1:
             log.report = self.evaluate()
+            if cfg.algo in cu.PERSONALIZE_FNS:
+                log.personalized = self.evaluate_personalized()
         self.history.append(log)
         return log
 
@@ -191,6 +209,9 @@ class FederatedServer:
                 self.history.append(RoundLog(t + i, float(loss)))
             if t1 % cfg.eval_every == 0 or t1 == cfg.n_rounds:
                 self.history[-1].report = self.evaluate()
+                if cfg.algo in cu.PERSONALIZE_FNS:
+                    self.history[-1].personalized = \
+                        self.evaluate_personalized()
             t = t1
         return self.history
 
@@ -200,6 +221,28 @@ class FederatedServer:
         with torch.no_grad():
             acc, correct, n = self._eval_fn(p, self.eval_X, self.eval_Y,
                                             self.eval_W)
+        return fairness_report(acc.cpu().numpy(), n.cpu().numpy(),
+                               correct.cpu().numpy())
+
+    def evaluate_personalized(self) -> FairnessReport:
+        """Adapt the global model to every client, then evaluate
+        (pFedMe's 'P' model, Per-FedAvg's test-time step). The batches
+        come from the server's numpy generator, ``pfedme_K`` of them a
+        client, as the reference draws them."""
+        cfg = self.cfg
+        X, Y = sample_batches(self.rng, self.data,
+                              np.arange(self.data.n_clients), cfg.pfedme_K,
+                              cfg.batch_size)
+        dev = self.device
+        hyper = cfg.hyper()
+        fn = cu.PERSONALIZE_FNS[cfg.algo]
+        per = torch.func.vmap(lambda p, x, y: fn(p, x, y, hyper),
+                              in_dims=(None, 0, 0))(
+            self.params, torch.from_numpy(X).to(dev),
+            torch.from_numpy(Y).to(dev))
+        with torch.no_grad():
+            acc, correct, n = torch.func.vmap(mlp_accuracy)(
+                per, self.eval_X, self.eval_Y, self.eval_W)
         return fairness_report(acc.cpu().numpy(), n.cpu().numpy(),
                                correct.cpu().numpy())
 

@@ -94,6 +94,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+constexpr int MAX_GRID = 65535;  // the most CTAs along grid.y or grid.z
 constexpr int GH = 16;  // query heads a CTA holds at most: the MMA's M
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
@@ -197,7 +198,8 @@ flash_decode_simt(const float* __restrict__ q, const float* __restrict__ k,
                   float* __restrict__ out, float* __restrict__ part_m,
                   float* __restrict__ part_l, float* __restrict__ part_acc,
                   int T_len, int KV, int G, int dh, int n_splits,
-                  int split_len, int n_hc, int stages, float scale) {
+                  int split_len, int n_hc, int stages, float scale, int b0,
+                  int kv0) {
   constexpr int TR = SIMT_ROWS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nch = dh >> 2;
@@ -213,8 +215,9 @@ flash_decode_simt(const float* __restrict__ q, const float* __restrict__ k,
 
   const int hc = blockIdx.y % n_hc;
   const int split = blockIdx.y / n_hc;
-  const int kvh = blockIdx.x;
-  const long long bkv = (long long)blockIdx.z * KV + kvh;
+  const int kvh = kv0 + blockIdx.x;
+  const long long b = b0 + (long long)blockIdx.z;
+  const long long bkv = b * KV + kvh;
   const int g0 = hc * GH;
   const int gc = min(GH, G - g0);
   const int lane = threadIdx.x & 31;
@@ -243,7 +246,7 @@ flash_decode_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int t1 = min(T_len, t0 + split_len);
   const int n_tiles = (t1 - t0 + TR - 1) / TR;
   const long long row_bytes = (long long)KV * dh * sizeof(float);
-  const long long base = ((long long)blockIdx.z * T_len * KV + kvh) * dh;
+  const long long base = (b * T_len * KV + kvh) * dh;
   const unsigned char* kg = reinterpret_cast<const unsigned char*>(k + base);
   const unsigned char* vg = reinterpret_cast<const unsigned char*>(v + base);
 
@@ -481,7 +484,7 @@ flash_decode_mma(const float* __restrict__ q,
                  float* __restrict__ part_m, float* __restrict__ part_l,
                  float* __restrict__ part_acc, int T_len, int KV, int G,
                  int dh, int n_splits, int split_len, int n_hc, int stages,
-                 float scale) {
+                 float scale, int b0, int kv0) {
   constexpr int TR = MMA_ROWS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int nch = dh >> 3;          // 16-byte chunks = 8-column slices
@@ -498,8 +501,9 @@ flash_decode_mma(const float* __restrict__ q,
 
   const int hc = blockIdx.y % n_hc;
   const int split = blockIdx.y / n_hc;
-  const int kvh = blockIdx.x;
-  const long long bkv = (long long)blockIdx.z * KV + kvh;
+  const int kvh = kv0 + blockIdx.x;
+  const long long b = b0 + (long long)blockIdx.z;
+  const long long bkv = b * KV + kvh;
   const int g0 = hc * GH;
   const int gc = min(GH, G - g0);
   const int lane = threadIdx.x & 31;
@@ -531,7 +535,7 @@ flash_decode_mma(const float* __restrict__ q,
   const int t1 = min(T_len, t0 + split_len);
   const int n_tiles = (t1 - t0 + TR - 1) / TR;
   const long long row_bytes = (long long)KV * dh * sizeof(__nv_bfloat16);
-  const long long base = ((long long)blockIdx.z * T_len * KV + kvh) * dh;
+  const long long base = (b * T_len * KV + kvh) * dh;
   const unsigned char* kg = reinterpret_cast<const unsigned char*>(k + base);
   const unsigned char* vg = reinterpret_cast<const unsigned char*>(v + base);
 
@@ -776,14 +780,15 @@ flash_decode_rows(const float* __restrict__ q, const T* __restrict__ k,
                   float* __restrict__ out, float* __restrict__ part_m,
                   float* __restrict__ part_l, float* __restrict__ part_acc,
                   int T_len, int KV, int G, int dh, int n_splits,
-                  int split_len, int lpr, float scale) {
+                  int split_len, int lpr, float scale, int b0, int kv0) {
   constexpr int VEC = Loader<T>::VEC;
   constexpr int E = CPL * VEC;  // floats of a row that one lane holds
   extern __shared__ float smem_rows[];
 
   const int split = blockIdx.x;
-  const int kv = blockIdx.y;
-  const long long bkv = (long long)blockIdx.z * KV + kv;
+  const int kv = kv0 + blockIdx.y;
+  const long long b = b0 + (long long)blockIdx.z;
+  const long long bkv = b * KV + kv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int rpw = 32 / lpr;  // rows a warp reads at a time
@@ -818,8 +823,7 @@ flash_decode_rows(const float* __restrict__ q, const T* __restrict__ k,
   const int t0 = split * split_len;
   const int t1 = min(T_len, t0 + split_len);
   const long long stride = (long long)KV * dh;
-  const long long base_off = (long long)blockIdx.z * T_len * stride +
-                             (long long)kv * dh;
+  const long long base_off = b * T_len * stride + (long long)kv * dh;
   const T* kb = k + base_off;
   const T* vb = v + base_off;
   const int n_rg = WARPS * rpw;
@@ -936,14 +940,16 @@ flash_decode_rows(const float* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Pass 2. Grid (G, KV, B): the splits of one query head merged in index
-// order, the division once at the end.
+// Pass 2. Grid (G, KV, B) of a chunk: the splits of one query head merged
+// in index order, the division once at the end.
 __global__ void __launch_bounds__(THREADS)
 flash_decode_combine(const float* __restrict__ part_m,
                      const float* __restrict__ part_l,
                      const float* __restrict__ part_acc,
-                     float* __restrict__ out, int G, int dh, int n_splits) {
-  const long long bkv = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+                     float* __restrict__ out, int G, int dh, int n_splits,
+                     int KV, int b0, int kv0) {
+  const long long bkv =
+      (b0 + (long long)blockIdx.z) * KV + kv0 + blockIdx.y;
   const int g = blockIdx.x;
   const long long first = bkv * n_splits * G + g;  // split 0's index
   float M = NEG;
@@ -977,6 +983,9 @@ struct Args {
   int B, T_len, KV, G, dh, n_splits, split_len, n_hc, stages, cpl, lpr;
   float scale;
   cudaStream_t s;
+  // the chunk of one launch: batch rows [b0, b0 + nb), kv heads
+  // [kv0, kv0 + nkv), each at most MAX_GRID (grid.y and grid.z's limit)
+  int b0, nb, kv0, nkv;
 };
 
 // The shared memory of each kind, as the kernels carve it up; plan() in
@@ -995,7 +1004,7 @@ size_t mma_smem(int dh, int stages) {
          sizeof(float) * 2 * MMA_WARPS * GH;
 }
 
-// Launch `kernel` on a grid of (KV, n_splits * n_hc, B) CTAs of NT
+// Launch `kernel` on a grid of (nkv, n_splits * n_hc, nb) CTAs of NT
 // threads with `smem` bytes of dynamic shared memory, raising the
 // kernel's limit to the card's once, since above 48 KB it must be asked
 // for. The kv heads of one split are neighbours in launch order: they
@@ -1016,10 +1025,11 @@ cudaError_t launch_tiled(const T* k, const T* v, size_t smem,
     if (err != cudaSuccess) return err;
     raised = true;
   }
-  const dim3 grid(a.KV, a.n_splits * a.n_hc, a.B);
+  const dim3 grid(a.nkv, a.n_splits * a.n_hc, a.nb);
   kernel<<<grid, NT, smem, a.s>>>(
       a.q, k, v, a.bias, a.out, a.part_m, a.part_l, a.part_acc, a.T_len,
-      a.KV, a.G, a.dh, a.n_splits, a.split_len, a.n_hc, a.stages, a.scale);
+      a.KV, a.G, a.dh, a.n_splits, a.split_len, a.n_hc, a.stages, a.scale,
+      a.b0, a.kv0);
   return cudaGetLastError();
 }
 
@@ -1054,12 +1064,12 @@ cudaError_t launch_mma(const Args& a) {
 
 template <typename T, int GMAX, int CPL>
 cudaError_t launch_rows_inst(const Args& a) {
-  const dim3 grid(a.n_splits, a.KV, a.B);
+  const dim3 grid(a.n_splits, a.nkv, a.nb);
   const size_t smem = (size_t)WARPS * GMAX * (2 + a.dh) * sizeof(float);
   flash_decode_rows<T, GMAX, CPL><<<grid, THREADS, smem, a.s>>>(
       a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.bias,
       a.out, a.part_m, a.part_l, a.part_acc, a.T_len, a.KV, a.G, a.dh,
-      a.n_splits, a.split_len, a.lpr, a.scale);
+      a.n_splits, a.split_len, a.lpr, a.scale, a.b0, a.kv0);
   return cudaGetLastError();
 }
 
@@ -1082,6 +1092,27 @@ cudaError_t launch_rows(const Args& a, int is_bf16) {
   return cudaErrorInvalidValue;
 }
 
+// Pass 1, and pass 2 when there is more than one split, of one chunk.
+cudaError_t launch_chunk(const Args& a, int kind, int is_bf16) {
+  cudaError_t err;
+  if (kind == KIND_ROWS) {
+    err = launch_rows(a, is_bf16);
+  } else if (a.stages < 2 || a.stages > 4) {
+    err = cudaErrorInvalidValue;
+  } else if (kind == KIND_SIMT && !is_bf16) {
+    err = launch_simt(a);
+  } else if (kind == KIND_MMA && is_bf16) {
+    err = launch_mma(a);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || a.n_splits == 1) return err;
+  flash_decode_combine<<<dim3(a.G, a.nkv, a.nb), THREADS, 0, a.s>>>(
+      a.part_m, a.part_l, a.part_acc, a.out, a.G, a.dh, a.n_splits, a.KV,
+      a.b0, a.kv0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1089,6 +1120,10 @@ extern "C" {
 // Launches pass 1 on `stream`, and pass 2 when n_splits > 1 (the part_*
 // buffers are then (B, KV, n_splits, G) f32 for m and l and
 // (B, KV, n_splits, G, dh) for acc; with one split they may be null).
+// B and KV past MAX_GRID, the limit of grid.y and grid.z, are cut into
+// chunks of at most MAX_GRID each, launched in turn (batch chunks outer):
+// a CTA computes the same (b, kv) slice in the same order whatever chunk
+// holds it.
 // kind: 0 the row loop (G in {1, 2}; cpl 1 or 2 in f32, 1 in bf16; lpr a
 // power of two <= 32), 1 the f32 tiles, 2 the bf16 tensor-core tiles
 // (n_hc head chunks of 16, `stages` ring slots, 2 to 4). Returns
@@ -1102,27 +1137,21 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Args a{static_cast<const float*>(q), k, v,
-               static_cast<const float*>(bias), static_cast<float*>(out),
-               static_cast<float*>(part_m), static_cast<float*>(part_l),
-               static_cast<float*>(part_acc), B, T, KV, G, dh, n_splits,
-               split_len, n_hc, stages, cpl, lpr, scale,
-               static_cast<cudaStream_t>(stream)};
-  if (kind == KIND_ROWS) {
-    err = launch_rows(a, is_bf16);
-  } else if (stages < 2 || stages > 4) {
-    err = cudaErrorInvalidValue;
-  } else if (kind == KIND_SIMT && !is_bf16) {
-    err = launch_simt(a);
-  } else if (kind == KIND_MMA && is_bf16) {
-    err = launch_mma(a);
-  } else {
-    err = cudaErrorInvalidValue;
+  Args a{static_cast<const float*>(q), k, v,
+         static_cast<const float*>(bias), static_cast<float*>(out),
+         static_cast<float*>(part_m), static_cast<float*>(part_l),
+         static_cast<float*>(part_acc), B, T, KV, G, dh, n_splits,
+         split_len, n_hc, stages, cpl, lpr, scale,
+         static_cast<cudaStream_t>(stream), 0, 0, 0, 0};
+  for (a.b0 = 0; a.b0 < B; a.b0 += MAX_GRID) {
+    a.nb = B - a.b0 < MAX_GRID ? B - a.b0 : MAX_GRID;
+    for (a.kv0 = 0; a.kv0 < KV; a.kv0 += MAX_GRID) {
+      a.nkv = KV - a.kv0 < MAX_GRID ? KV - a.kv0 : MAX_GRID;
+      err = launch_chunk(a, kind, is_bf16);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
-  flash_decode_combine<<<dim3(G, KV, B), THREADS, 0, a.s>>>(
-      a.part_m, a.part_l, a.part_acc, a.out, G, dh, n_splits);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 const char* flash_decode_error_string(int code) {

@@ -4,10 +4,18 @@
 the card and raises on anything else: there is no fallback here. The
 choice between the kernel and its plain version (``ref.py``) is made by
 the ``repro_torch::flash_decode`` op in ``ops.py``, by device alone.
-``LAUNCHES`` counts the calls that launch it in this process (one per
-call, whether the call runs one pass or two). ``plan`` is the launch
-geometry, plain Python so the CPU tests reach it, cached on its
-arguments.
+``LAUNCHES`` counts the launches of this process: one a call, whether
+it runs one pass or two, and for B or KV past MAX_GRID one a chunk of
+at most MAX_GRID batch rows and MAX_GRID kv heads (``n_chunks``).
+``plan`` is the launch geometry, plain Python so the CPU tests reach
+it, cached on its arguments.
+
+The binding's contract, in order: the first statement refuses any
+operand that is not a CUDA tensor, with a ``ValueError`` that names
+CUDA, before the counter moves and before the library is built or
+loaded; then the shape checks and one pass over device, dtype, shape
+and contiguity, with ``_check`` naming the first fault. A failed
+launch raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -31,6 +39,10 @@ SMEM_RESERVED = 1_024   # the runtime's own share of each CTA's
 MAX_STAGES = 4
 TILE_ROWS = {"simt": 32, "mma": 64}
 KINDS = {"rows": 0, "simt": 1, "mma": 2}
+# the most batch rows, and kv heads, of one launch (grid.y and grid.z's
+# limit; MAX_GRID in the .cu): a call past it is cut into chunks
+MAX_GRID = 65535
+_OPERANDS = ("q", "k", "v", "bias")
 
 
 class Plan(NamedTuple):
@@ -104,6 +116,12 @@ def plan(B: int, KV: int, G: int, dh: int, T: int, elem_bytes: int,
                 -(-T // split_len), split_len)
 
 
+def n_chunks(B: int, KV: int) -> int:
+    """Launches of one call: one a chunk of at most MAX_GRID batch rows
+    and MAX_GRID kv heads."""
+    return -(-B // MAX_GRID) * -(-KV // MAX_GRID)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("flash_decode")
@@ -127,13 +145,18 @@ def flash_decode_call(q, k, v, bias, *, t_blk: int = 512):
     q: (B, KV, G, dh) f32; k, v: (B, T, KV, dh) f32 or bf16, one dtype;
     bias: (T,) f32 additive mask; all contiguous on the card. Any T >= 1:
     ``t_blk`` is the shortest T split (it tunes, it does not restrict).
-    dh a multiple of 16 / sizeof(k's dtype), up to 256. Returns the
-    (B, KV, G, dh) attention output in f32.
+    dh a multiple of 16 / sizeof(k's dtype), up to 256; any B, KV >= 1
+    (past MAX_GRID the call is cut into chunks, each (b, kv) slice
+    computed as in a launch that holds it). Returns the (B, KV, G, dh)
+    attention output in f32.
     """
     global LAUNCHES
-    if not q.is_cuda:
-        raise ValueError("flash_decode_call runs on CUDA tensors only; the "
-                         "plain version is ref.flash_decode_ref")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda and bias.is_cuda):
+        name, t = next((n, t) for n, t in zip(_OPERANDS, (q, k, v, bias))
+                       if not t.is_cuda)
+        raise ValueError(f"flash_decode_call runs on CUDA tensors only, and "
+                         f"{name} lies on {t.device}; the plain version is "
+                         f"ref.flash_decode_ref")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be (B, KV, G, dh) and k (B, T, KV, dh), "
                          f"not {tuple(q.shape)} and {tuple(k.shape)}")
@@ -144,10 +167,10 @@ def flash_decode_call(q, k, v, bias, *, t_blk: int = 512):
     T = k.shape[1]
     elem = k.element_size()
     if dh % (16 // elem) or not 0 < dh <= MAX_DH or T < 1 or min(
-            B, KV, G) < 1 or max(B, KV) > 65535:
+            B, KV, G) < 1:
         raise ValueError(f"unsupported shape B={B}, KV={KV}, G={G}, dh={dh}"
                          f", T={T}: dh a multiple of {16 // elem} up to "
-                         f"{MAX_DH}, T >= 1, B and KV in [1, 65535]")
+                         f"{MAX_DH}, T >= 1, B, KV, G >= 1")
     dev = q.device
     kv_shape = (B, T, KV, dh)
     # one pass over the common case; _check names the first fault
@@ -180,7 +203,7 @@ def flash_decode_call(q, k, v, bias, *, t_blk: int = 512):
     # the current stream's handle, without building a Stream object (a
     # few microseconds a call)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    LAUNCHES += 1
+    LAUNCHES += n_chunks(B, KV)
     err = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         out.data_ptr(), *parts,

@@ -6,7 +6,10 @@ the card and raise on anything else: there is no fallback here. The
 choice between the kernel and its plain version (``ref.py``) is made by
 the ``repro_torch::robust_agg`` ops in ``ops.py``, by device alone.
 ``LAUNCHES`` and ``BATCHED_LAUNCHES`` count the launches of this
-process through each entry.
+process through each entry: one a call, and for S past MAX_SCENARIOS
+(the grid's y limit) one a chunk of at most MAX_SCENARIOS scenarios,
+launched in turn, each scenario's outputs bitwise those of its own
+single launch.
 
 The binding's contract, in order: the first statement of each entry
 refuses any operand that is not a CUDA tensor, with a ``ValueError``
@@ -25,7 +28,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import DENOM_EPS
+from repro_torch.kernels.common import (DENOM_EPS, MAX_SCENARIOS,
+                                       scenario_ptr as _at)
 
 LAUNCHES = 0
 BATCHED_LAUNCHES = 0
@@ -57,12 +61,12 @@ class Plan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def plan(S: int, C: int, P: int, F: int, trim_k: int, ef: bool) -> Plan:
     """The kernel's geometry for S scenarios of (C, P, F) uploads, with
-    or without EF; raises ``ValueError`` on what it cannot take."""
+    or without EF; raises ``ValueError`` on what it cannot take. Any
+    S >= 1: the binding launches past MAX_SCENARIOS in chunks, each with
+    this plan."""
     if not 1 <= F <= MAX_F or min(S, C, P) < 1:
         raise ValueError(f"unsupported packet shape S={S}, C={C}, P={P}, "
                          f"F={F}: S, C, P > 0 and F in [1, {MAX_F}]")
-    if S > 65535:
-        raise ValueError(f"at most 65535 scenarios in one launch, not {S}")
     if trim_k < 0:
         raise ValueError(f"trim_k must be >= 0, not {trim_k}")
     chunk = min(CHUNK, C)
@@ -122,8 +126,9 @@ def _fits(t, shape, index):
 def _launch(lead, x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos,
             trim_k, per_coord):
     """Check the operands of S = ``lead[0]`` scenarios (one, with no
-    scenario axis, when ``lead`` is empty) and launch the kernel once,
-    counted under the entry that asked for it."""
+    scenario axis, when ``lead`` is empty) and launch the kernel once a
+    chunk of at most MAX_SCENARIOS scenarios, each launch counted under
+    the entry that asked for it."""
     global LAUNCHES, BATCHED_LAUNCHES
     C, P, F = x.shape[-3:]
     S = lead[0] if lead else 1
@@ -153,25 +158,26 @@ def _launch(lead, x, m, q, w_or_den, screen, trim_gate, ef, g, w_pos,
     ef_out = None if ef is None else torch.empty_like(ef)
     # the k-pass column of each CTA, where it does not fit shared memory
     column = x.new_empty((S, P, C, F + 1)) if pl.column else None
+    if not trim:
+        g = w_pos = None
     lib = _lib()
     # the current stream's handle, without building a Stream object
     stream = torch._C._cuda_getCurrentRawStream(index)
-    if lead:
-        BATCHED_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    err = lib.robust_agg_launch(
-        x.data_ptr(), None if ef is None else ef.data_ptr(), m.data_ptr(),
-        q.data_ptr(), g.data_ptr() if trim else None,
-        w_pos.data_ptr() if trim else None, w_or_den.data_ptr(),
-        screen.data_ptr(), trim_gate.data_ptr(), agg.data_ptr(),
-        None if ef_out is None else ef_out.data_ptr(),
-        None if column is None else column.data_ptr(), S, C, P, F,
-        int(per_coord), trim_k, DENOM_EPS, pl.chunk, pl.slots, pl.smem,
-        pl.threads, index, stream)
-    if err:
-        raise RuntimeError("robust_agg kernel launch failed: "
-                           + lib.robust_agg_error_string(err).decode())
+    for s0 in range(0, S, MAX_SCENARIOS):
+        if lead:
+            BATCHED_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+        err = lib.robust_agg_launch(
+            _at(x, s0), _at(ef, s0), _at(m, s0), _at(q, s0), _at(g, s0),
+            _at(w_pos, s0), _at(w_or_den, s0), _at(screen, s0),
+            _at(trim_gate, s0), _at(agg, s0), _at(ef_out, s0),
+            _at(column, s0), min(MAX_SCENARIOS, S - s0), C, P, F,
+            int(per_coord), trim_k, DENOM_EPS, pl.chunk, pl.slots, pl.smem,
+            pl.threads, index, stream)
+        if err:
+            raise RuntimeError("robust_agg kernel launch failed: "
+                               + lib.robust_agg_error_string(err).decode())
     return agg, ef_out
 
 
@@ -209,7 +215,8 @@ def robust_agg_batched_call(x, m, q, w_or_den, screen, trim_gate, *,
     ``w_or_den`` (S, C) when ``per_coord``, else (S,)).
 
     Returns (agg (S, P, F) f32, ef_out (S, C, P, F) | None), bitwise
-    equal to S single calls.
+    equal to S single calls. Any S >= 1: past MAX_SCENARIOS, one launch a
+    chunk.
     """
     if not (x.is_cuda and m.is_cuda and q.is_cuda and w_or_den.is_cuda
             and screen.is_cuda and trim_gate.is_cuda

@@ -25,7 +25,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import DENOM_EPS
+from repro_torch.kernels.common import (DENOM_EPS, MAX_SCENARIOS,
+                                       scenario_ptr as _at)
 
 LAUNCHES = 0
 
@@ -52,9 +53,8 @@ def plan(S: int, C: int, P: int, F: int) -> Plan:
     """The kernel's geometry for S scenarios of (C, P, F) uploads;
     raises ``ValueError`` on what it cannot take. Rows under 256 floats
     share a CTA, so that a warp has work; rows past TILE floats are cut
-    into tiles."""
-    if S > 65535:
-        raise ValueError(f"at most 65535 scenarios in one launch, not {S}")
+    into tiles. Any S: the binding launches past MAX_SCENARIOS in
+    chunks, each with this plan."""
     if F > TILE:
         rows, tiles, span = 1, -(-F // TILE), TILE
     else:
@@ -108,7 +108,8 @@ def _fits(t, shape, index):
 
 def _launch(lead, x, m, w, eps):
     """Check the operands of S = ``lead[0]`` scenarios (one, with no
-    scenario axis, when ``lead`` is empty) and launch the kernel once."""
+    scenario axis, when ``lead`` is empty) and launch the kernel once a
+    chunk of at most MAX_SCENARIOS scenarios, each launch counted."""
     global LAUNCHES
     C, P, F = x.shape[-3:]
     S = lead[0] if lead else 1
@@ -127,14 +128,15 @@ def _launch(lead, x, m, w, eps):
     lib = _lib()
     # the current stream's handle, without building a Stream object
     stream = torch._C._cuda_getCurrentRawStream(index)
-    LAUNCHES += 1
-    err = lib.tra_agg_launch(x.data_ptr(), m.data_ptr(), w.data_ptr(),
-                             out.data_ptr(), S, C, P, F, eps, pl.rows,
-                             pl.tiles, pl.threads, pl.chunk, pl.smem, vec,
-                             index, stream)
-    if err:
-        raise RuntimeError("tra_agg kernel launch failed: "
-                           + lib.tra_agg_error_string(err).decode())
+    for s0 in range(0, S, MAX_SCENARIOS):
+        LAUNCHES += 1
+        err = lib.tra_agg_launch(_at(x, s0), _at(m, s0), _at(w, s0),
+                                 _at(out, s0), min(MAX_SCENARIOS, S - s0),
+                                 C, P, F, eps, pl.rows, pl.tiles, pl.threads,
+                                 pl.chunk, pl.smem, vec, index, stream)
+        if err:
+            raise RuntimeError("tra_agg kernel launch failed: "
+                               + lib.tra_agg_error_string(err).decode())
     return out
 
 
@@ -150,8 +152,9 @@ def tra_agg_call(x, mask, w, *, eps: float = DENOM_EPS):
 
 
 def tra_agg_batched_call(x, mask, w, *, eps: float = DENOM_EPS):
-    """One launch for S scenarios: the operands of ``tra_agg_call`` with
-    a leading S -> (S, P, F), bitwise S single calls."""
+    """One launch for S scenarios (one a chunk past MAX_SCENARIOS): the
+    operands of ``tra_agg_call`` with a leading S -> (S, P, F), bitwise S
+    single calls."""
     if not (x.is_cuda and mask.is_cuda and w.is_cuda):
         _refuse("tra_agg_batched_call", (x, mask, w))
     if x.dim() != 4:

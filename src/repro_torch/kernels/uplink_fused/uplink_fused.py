@@ -6,7 +6,10 @@ on the card and raise on anything else: there is no fallback here. The
 choice between the kernel and its plain version (``ref.py``) is made by
 the ``repro_torch::uplink_fused`` ops in ``ops.py``, by device alone.
 ``LAUNCHES`` and ``BATCHED_LAUNCHES`` count the launches of this
-process through each entry.
+process through each entry: one a call, and for S past MAX_SCENARIOS
+(the grid's y limit) one a chunk of at most MAX_SCENARIOS scenarios,
+launched in turn, each scenario's outputs bitwise those of its own
+single launch.
 
 The binding's contract, in order: the first statement of each entry
 refuses any operand that is not a CUDA tensor, with a ``ValueError``
@@ -25,7 +28,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import DENOM_EPS
+from repro_torch.kernels.common import (DENOM_EPS, MAX_SCENARIOS,
+                                       scenario_ptr as _at)
 
 LAUNCHES = 0
 BATCHED_LAUNCHES = 0
@@ -61,12 +65,11 @@ def plan(S: int, C: int, P: int, F: int, ef: bool, bf16: bool,
     """The kernel's geometry for S scenarios of (C, P, F) uploads in f32
     or bf16, with or without EF and the masked norms; raises
     ``ValueError`` on what it cannot take. Any F >= 1: a row wider than
-    one CTA's floats is split over ``tiles`` CTAs."""
+    one CTA's floats is split over ``tiles`` CTAs. Any S >= 1: the
+    binding launches past MAX_SCENARIOS in chunks, each with this plan."""
     if min(S, P, F) < 1 or C < 0:
         raise ValueError(f"unsupported packet shape S={S}, C={C}, P={P}, "
                          f"F={F}: S, P, F > 0")
-    if S > 65535:
-        raise ValueError(f"at most 65535 scenarios in one launch, not {S}")
     floats = 4 if (P if ssq else S * P) >= WIDE_ROWS else 1
     groups = -(-F // floats)
     threads = min(MAX_THREADS, -(-groups // 32) * 32)
@@ -120,8 +123,9 @@ def _fits(t, shape, dtype, index):
 
 def _launch(lead, x, m, q, w_or_den, ef, want_ssq, per_coord):
     """Check the operands of S = ``lead[0]`` scenarios (one, with no
-    scenario axis, when ``lead`` is empty) and launch the kernel once,
-    counted under the entry that asked for it."""
+    scenario axis, when ``lead`` is empty) and launch the kernel once a
+    chunk of at most MAX_SCENARIOS scenarios, each launch counted under
+    the entry that asked for it."""
     global LAUNCHES, BATCHED_LAUNCHES
     C, P, F = x.shape[-3:]
     S = lead[0] if lead else 1
@@ -154,20 +158,22 @@ def _launch(lead, x, m, q, w_or_den, ef, want_ssq, per_coord):
     lib = _lib()
     # the current stream's handle, without building a Stream object
     stream = torch._C._cuda_getCurrentRawStream(index)
-    if lead:
-        BATCHED_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    err = lib.uplink_fused_launch(
-        x.data_ptr(), None if ef is None else ef.data_ptr(), m.data_ptr(),
-        q.data_ptr(), w_or_den.data_ptr(), agg.data_ptr(),
-        None if ef_out is None else ef_out.data_ptr(),
-        None if ssq is None else ssq.data_ptr(), S, C, P, F, bf16,
-        per_coord, DENOM_EPS, pl.chunk, pl.threads, pl.tiles, pl.floats,
-        pl.smem, vec, index, stream)
-    if err:
-        raise RuntimeError("uplink_fused kernel launch failed: "
-                           + lib.uplink_fused_error_string(err).decode())
+    # a chunk's scenarios start a whole scenario on: the vec alignment
+    # of the first holds for every chunk
+    for s0 in range(0, S, MAX_SCENARIOS):
+        if lead:
+            BATCHED_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+        err = lib.uplink_fused_launch(
+            _at(x, s0), _at(ef, s0), _at(m, s0), _at(q, s0),
+            _at(w_or_den, s0), _at(agg, s0), _at(ef_out, s0),
+            _at(ssq, s0), min(MAX_SCENARIOS, S - s0), C, P, F, bf16,
+            per_coord, DENOM_EPS, pl.chunk, pl.threads, pl.tiles,
+            pl.floats, pl.smem, vec, index, stream)
+        if err:
+            raise RuntimeError("uplink_fused kernel launch failed: "
+                               + lib.uplink_fused_error_string(err).decode())
     return agg, ef_out, ssq
 
 
@@ -201,6 +207,7 @@ def uplink_fused_batched_call(x, m, q, w_or_den, *, ef=None,
 
     Returns (agg (S, P, F) f32, ef_out (S, C, P, F) | None, ssq
     (S, C, P * tiles) partials | None), bitwise equal to S single calls.
+    Any S >= 1: past MAX_SCENARIOS, one launch a chunk.
     """
     if not (x.is_cuda and m.is_cuda and q.is_cuda and w_or_den.is_cuda
             and (ef is None or ef.is_cuda)):

@@ -1,7 +1,9 @@
 """The port's CUDA kernels and paths on the card.
 
-Every test here is marked ``cuda`` and skips without a card. The file
-imports no JAX, so it runs on a machine with the card and no JAX:
+Every test here but two is marked ``cuda`` and skips without a card;
+``flash_decode_call``'s CPU refusal and its chunk count run anywhere.
+The file imports no JAX, so it runs on a machine with the card and no
+JAX:
 
     PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -37,6 +39,13 @@ whole tiles masked first or last, split boundaries inside tiles; a
 reduced serve on the card against the CPU from the same
 params: greedy tokens equal, logits rtol 1e-4 / atol 1e-5 (f32 matmuls
 sum in another order on the card), one launch per layer and step.
+Past 65,535 scenarios (the batched uplink, robust and tra_agg kernels)
+or batch rows and kv heads (flash_decode): every scenario or slice
+bitwise the launches that hold it below the limit
+(``tests/_torch_wide_cases.py``). The uplink at SCAFFOLD's (10, 72, 256)
+at the uplink tolerances; two rounds of pFedMe, Per-FedAvg, AFL and
+SCAFFOLD on the card against the CPU: cohorts equal, carries rtol 1e-4
+/ atol 1e-5.
 """
 import dataclasses
 
@@ -46,7 +55,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import protocol
-from repro_torch.core.server import FLConfig, run_grid
+from repro_torch.core.server import FederatedServer, FLConfig, run_grid
 from repro_torch.core.sweep import SweepEngine
 from repro_torch.core.tra import DEBIAS_MODES, TRAConfig, sufficiency_report
 from repro_torch.data.synthetic import generate_synthetic
@@ -85,6 +94,7 @@ from repro_torch.network import packets as t_pk
 from repro_torch.network.trace import ClientNetworks, sample_networks
 from _torch_channel_cases import (FEC_G, GE_VARIANTS, MASK_P, SEEDS,
                                   fec_case, ge_case)
+import _torch_wide_cases as wide
 
 S, C, P, F = 3, 6, 16, 32
 D_UP = P * F - 11                       # partial last packet
@@ -1316,3 +1326,105 @@ def test_cuda_serve_launches_once_per_layer_and_step(dev):
     res = t_serve.run(["--reduced", "--tokens", "4"])
     assert res.tokens.is_cuda and res.tokens.shape == (2, 5)
     assert t_fd.LAUNCHES == before + res.cfg.n_layers * (8 + 4)
+
+
+# ---------------------------------------------------------------------------
+# grid axes past 65,535, SCAFFOLD's upload shape, the four algorithms
+# ---------------------------------------------------------------------------
+class _OnCard:
+    """Stands in for a tensor on the card: the refusal reads only
+    ``is_cuda``."""
+    is_cuda = True
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "bias"])
+def test_flash_decode_call_refuses_a_cpu_operand_first(name):
+    """A CPU tensor in any operand raises the CUDA refusal, named, before
+    the counter moves and before the library is built or loaded: the rest
+    stand in for tensors on the card, and the CPU one is of the wrong
+    dtype and shape, so no later check can raise first. Runs without a
+    card."""
+    ops = {k: _OnCard() for k in ("q", "k", "v", "bias")}
+    ops[name] = torch.zeros(3, dtype=torch.float64)
+    before = (t_fd.LAUNCHES, t_fd._lib.cache_info())
+    with pytest.raises(ValueError, match=f"CUDA tensors only, and {name} "
+                                         f"lies on cpu"):
+        t_fd.flash_decode_call(ops["q"], ops["k"], ops["v"], ops["bias"])
+    assert (t_fd.LAUNCHES, t_fd._lib.cache_info()) == before
+
+
+@pytest.mark.parametrize("B,KV,n", [(1, 1, 1), (65535, 65535, 1),
+                                    (65536, 1, 2), (1, 65536, 2),
+                                    (131071, 65536, 6)])
+def test_flash_decode_chunks_count_the_launches(B, KV, n):
+    """Past 65,535 batch rows or kv heads a call launches a chunk at a
+    time, and LAUNCHES counts each. Runs without a card."""
+    assert t_fd.n_chunks(B, KV) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_coord", [False, True])
+@pytest.mark.parametrize("use_ef", [False, True])
+def test_cuda_uplink_batched_takes_65536_scenarios(dev, per_coord, use_ef):
+    launches, _ = wide.uplink_wide(dev, per_coord=per_coord, use_ef=use_ef)
+    assert launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trim_k,use_ef", [(0, True), (2, False)])
+def test_cuda_robust_batched_takes_65536_scenarios(dev, trim_k, use_ef):
+    launches, _ = wide.robust_wide(dev, trim_k=trim_k, use_ef=use_ef)
+    assert launches == 2
+
+
+@pytest.mark.cuda
+def test_cuda_tra_agg_batched_takes_65536_scenarios(dev):
+    launches, _ = wide.tra_wide(dev)
+    assert launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["B", "KV"])
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_takes_65536_rows(dev, axis, T, dtype):
+    launches, _ = wide.flash_wide(dev, axis=axis, T=T, dtype=dtype)
+    assert launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", DEBIAS_MODES)
+@pytest.mark.parametrize("use_ef", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_uplink_at_scaffold_upload_shape(dev, mode, use_ef, dtype):
+    """SCAFFOLD uploads dw ++ dc: (10, 72, 256), the last packet 20 floats
+    full, with EF rows at 2·D."""
+    wide.uplink_scaffold(dev, mode=mode, use_ef=use_ef, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["pfedme", "perfedavg", "afl", "scaffold"])
+def test_cuda_algorithm_rounds_match_cpu(dev, algo):
+    """Two rounds of each algorithm with TRA and EF on the card and the
+    CPU from one seed: cohorts equal, params and carries rtol 1e-4 / atol
+    1e-5, one uplink launch a round on the card."""
+    data = generate_synthetic(np.random.default_rng(0), n_clients=20,
+                              alpha=0.5, beta=0.5)
+    nets = sample_networks(np.random.default_rng(1), 20)
+    cfg = FLConfig(algo=algo, n_rounds=2, clients_per_round=8,
+                   local_steps=4, batch_size=16, pfedme_K=2,
+                   error_feedback=True,
+                   tra=TRAConfig(enabled=True, loss_rate=0.2))
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = t_uf.LAUNCHES
+        srv = FederatedServer(cfg, data, nets, device=d)
+        st, logs = srv.engine.run_block(srv._state, 0, 2)
+        if d == "cuda":
+            assert t_uf.LAUNCHES == before + 2
+        out[d] = (logs["ids"], st)
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    for name in ("ef_mem", "lam", "c_global", "c_i"):
+        np.testing.assert_allclose(getattr(out["cuda"][1], name).cpu(),
+                                   getattr(out["cpu"][1], name), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)

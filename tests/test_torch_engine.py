@@ -208,7 +208,6 @@ def test_default_device_is_the_card(small, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(algo="scaffold"), dict(algo="pfedme"),
     dict(sel=SelectionConfig(policy="gradient_norm")),
     dict(sel=SelectionConfig(traced=True))])
 def test_unported_configs_raise(small, change):

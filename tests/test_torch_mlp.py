@@ -85,11 +85,6 @@ def test_local_updates_over_cohort(params, algo):
     np.testing.assert_allclose(t_flat, j_flat, atol=1e-5)
 
 
-def test_unported_algorithms_raise(params):
-    with pytest.raises(NotImplementedError):
-        t_cu.LOCAL_FNS["pfedme"](params, None, None, HYPER)
-
-
 @pytest.mark.parametrize("loss_rate", [0.0, 0.3])
 def test_simulate_uploads_matches_reference(loss_rate):
     """Bitwise: the same threefry draws give the same packet masks."""

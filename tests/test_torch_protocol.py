@@ -69,6 +69,7 @@ from repro_torch.kernels.tra_agg.tra_agg import tra_agg_call as t_ta_call
 from repro_torch.kernels.uplink_fused import ops as uplink_ops
 from repro_torch.network import packets as t_pk
 from repro_torch.network.trace import sample_networks as t_sample_networks
+from _torch_wide_cases import RecordingLib
 
 
 def _bits(a):
@@ -712,5 +713,33 @@ def test_tra_agg_plan_constants_follow_the_kernel_source():
     # the static mask weights (2 x kChunk x kMaxRows floats) beside the
     # dynamic budget stay within the 48 KB without an opt-in
     assert t_ta.SMEM_BUDGET + 2 * t_ta.CHUNK * t_ta.MAX_ROWS * 4 <= 48 * 1024
-    with pytest.raises(ValueError, match="at most 65535 scenarios"):
-        t_ta.plan(65536, 10, 36, 256)
+    # any scenario count: the binding launches past 65,535 in chunks,
+    # each with the plan of the whole call
+    assert t_ta.plan(65536, 10, 36, 256) == t_ta.plan(1, 10, 36, 256)
+
+
+
+@pytest.mark.parametrize("S,chunks", [(65536, [65535, 1]),
+                                      (131073, [65535, 65535, 3])])
+def test_tra_agg_batched_binding_launches_past_65535_scenarios_in_chunks(
+        monkeypatch, S, chunks):
+    """Scenarios lie on grid.y: the binding launches a chunk of at most
+    MAX_SCENARIOS at a time, operands and output offset to the chunk's
+    first scenario, and counts each launch."""
+    assert t_ta.MAX_SCENARIOS == 65535
+    lib = RecordingLib("tra_agg_launch")
+    monkeypatch.setattr(t_ta, "_lib", lambda: lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    C, P, F = 3, 2, 4
+    x, m, w = (torch.zeros((S, C, P, F)), torch.ones((S, C, P)),
+               torch.ones((S, C)))
+    before = t_ta.LAUNCHES
+    out = t_ta._launch((S,), x, m, w, 1e-8)
+    assert t_ta.LAUNCHES - before == len(chunks)
+    assert [c[4] for c in lib.calls] == chunks
+    s0 = 0
+    for call, n in zip(lib.calls, chunks):
+        assert list(call[:4]) == [t.data_ptr() + s0 * t.stride(0) * 4
+                                  for t in (x, m, w, out)]
+        s0 += n

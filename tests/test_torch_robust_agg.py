@@ -31,6 +31,7 @@ from repro_torch.kernels.robust_agg.ref import (TRIM_BIG,
                                                 masked_trimmed_mean)
 from repro_torch.kernels.uplink_fused import ops as uplink_ops
 from repro_torch.netsim.faults import CLIP_OFF
+from _torch_wide_cases import RecordingLib
 
 C, P, F = 8, 6, 32
 D_UP = P * F - 11                       # partial last packet
@@ -545,7 +546,6 @@ def test_launch_plan_at_the_paths_shapes(S, C_, P_, F_, trim_k, ef, want):
     (1, 0, 36, 256, 2, "S, C, P > 0"),
     (1, 12, 0, 256, 2, "S, C, P > 0"),
     (0, 12, 36, 256, 2, "S, C, P > 0"),
-    (65536, 12, 36, 256, 2, "at most 65535 scenarios"),
     (1, 12, 36, 256, -1, "trim_k must be >= 0"),
     (1, 40, 36, 256, -17, "trim_k must be >= 0")])
 def test_launch_plan_refuses_what_the_kernel_cannot_take(S, C_, P_, F_,
@@ -589,3 +589,39 @@ def test_binding_check_names_the_operand():
     with pytest.raises(ValueError, match="ef must be contiguous"):
         t_ra._check("ef", t.t(), (3, 2), here)
     t_ra._check("x", t, (2, 3), here)
+
+
+
+@pytest.mark.parametrize("S,chunks", [(65536, [65535, 1]),
+                                      (131073, [65535, 65535, 3])])
+@pytest.mark.parametrize("trim_k", [0, 2])
+def test_batched_binding_launches_past_65535_scenarios_in_chunks(
+        monkeypatch, S, chunks, trim_k):
+    """Scenarios lie on grid.y: the binding launches a chunk of at most
+    MAX_SCENARIOS at a time, every operand and output offset to the
+    chunk's first scenario, and counts each launch."""
+    assert t_ra.MAX_SCENARIOS == 65535
+    lib = RecordingLib("robust_agg_launch")
+    monkeypatch.setattr(t_ra, "_lib", lambda: lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    C, P, F = 3, 1, 2
+    x = torch.zeros((S, C, P, F))
+    ef = torch.zeros_like(x)
+    m, q, g, w_pos = (torch.ones((S, C, P)), torch.ones((S, C)),
+                      torch.ones((S, C)), torch.ones((S, C)))
+    den, screen, trim_gate = torch.ones(S), torch.ones(S), torch.ones(S)
+    before = t_ra.BATCHED_LAUNCHES
+    agg, ef_out = t_ra._launch((S,), x, m, q, den, screen, trim_gate, ef, g,
+                               w_pos, trim_k, False)
+    assert t_ra.BATCHED_LAUNCHES - before == len(chunks)
+    assert [c[12] for c in lib.calls] == chunks
+    trim = trim_k > 0
+    s0 = 0
+    for call, n in zip(lib.calls, chunks):
+        ptrs = [x, ef, m, q, g if trim else None, w_pos if trim else None,
+                den, screen, trim_gate, agg, ef_out, None]
+        assert list(call[:12]) == [
+            None if t is None else t.data_ptr()
+            + s0 * t.stride(0) * t.element_size() for t in ptrs]
+        s0 += n

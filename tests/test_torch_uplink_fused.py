@@ -22,6 +22,7 @@ from repro_torch.core.tra import DEBIAS_MODES
 from repro_torch.kernels.common import DENOM_EPS, RATE_EPS
 from repro_torch.kernels.uplink_fused import ops as t_ops
 from repro_torch.kernels.uplink_fused import uplink_fused as t_uf
+from _torch_wide_cases import RecordingLib
 
 C, P, F = 6, 16, 32
 D_UP = P * F - 11                       # partial last packet
@@ -305,8 +306,7 @@ def test_launch_plan_covers_any_packet_width(S, C_, P_, F_, ef, bf16, ssq,
 
 @pytest.mark.parametrize("S,C_,P_,F_,msg", [
     (0, 10, 36, 256, "S, P, F > 0"), (1, 10, 0, 256, "S, P, F > 0"),
-    (1, 10, 36, 0, "S, P, F > 0"), (1, -1, 36, 256, "S, P, F > 0"),
-    (65536, 10, 36, 256, "at most 65535 scenarios")])
+    (1, 10, 36, 0, "S, P, F > 0"), (1, -1, 36, 256, "S, P, F > 0")])
 def test_launch_plan_refuses_what_the_kernel_cannot_take(S, C_, P_, F_, msg):
     with pytest.raises(ValueError, match=msg):
         t_uf.plan(S, C_, P_, F_, False, False, True)
@@ -371,3 +371,40 @@ def test_binding_check_names_the_operand():
     with pytest.raises(ValueError, match="ef must be contiguous"):
         t_uf._check("ef", t.t(), (3, 2), f32, here)
     t_uf._check("x", t, (2, 3), f32, here)
+
+
+
+@pytest.mark.parametrize("S,chunks", [(65535, [65535]),
+                                      (65536, [65535, 1]),
+                                      (131073, [65535, 65535, 3])])
+@pytest.mark.parametrize("ssq", [False, True])
+def test_batched_binding_launches_past_65535_scenarios_in_chunks(
+        monkeypatch, S, chunks, ssq):
+    """Scenarios lie on grid.y: the binding launches a chunk of at most
+    MAX_SCENARIOS at a time, every operand and output offset to the
+    chunk's first scenario, all chunks with the plan of the whole call,
+    and counts each launch."""
+    assert t_uf.MAX_SCENARIOS == 65535
+    lib = RecordingLib("uplink_fused_launch")
+    monkeypatch.setattr(t_uf, "_lib", lambda: lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    C, P, F = 2, 1, 4
+    x = torch.zeros((S, C, P, F))
+    ef = torch.zeros_like(x)
+    m, q = torch.ones((S, C, P)), torch.ones((S, C))
+    den = torch.ones(S)
+    before = t_uf.BATCHED_LAUNCHES
+    agg, ef_out, ssq_out = t_uf._launch((S,), x, m, q, den, ef, ssq, False)
+    assert t_uf.BATCHED_LAUNCHES - before == len(chunks)
+    assert [c[8] for c in lib.calls] == chunks
+    pl = t_uf.plan(S, C, P, F, True, False, ssq)
+    s0 = 0
+    for call, n in zip(lib.calls, chunks):
+        ptrs = [x, ef, m, q, den, agg, ef_out, ssq_out]
+        want = [None if t is None else t.data_ptr()
+                + s0 * t.stride(0) * t.element_size() for t in ptrs]
+        assert list(call[:8]) == want
+        assert call[15:20] == (pl.chunk, pl.threads, pl.tiles, pl.floats,
+                               pl.smem)
+        s0 += n
