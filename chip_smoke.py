@@ -12,8 +12,9 @@ paths (the quickstart's federated rounds, the paper's bursty-loss grid
 as one scenario-batched sweep, the corruption-tolerance grid of fault
 rate x defense, the full-duplex recovery grid of recovery policy x
 loss rate, the protocol layer's host-loop round, greedy serving of
-qwen1.5-4b and starcoder2-15b at full width, and the paper's pFedMe,
-Per-FedAvg, AFL and SCAFFOLD cells) through the kernels,
+qwen1.5-4b and starcoder2-15b at full width, the paper's pFedMe,
+Per-FedAvg, AFL and SCAFFOLD cells, and the selection-policy x loss-rate
+grid with the paper's bias headline) through the kernels,
 compares the card's runs with the CPU's, times the kernels, and ends
 with a one-line JSON verdict. Any failed check exits non-zero; with no card it exits
 non-zero at once and prints no result.
@@ -181,6 +182,27 @@ Phases:
                 tolerances (params, SCAFFOLD's variates, AFL's weights,
                 EF at 2·D for SCAFFOLD), the personalize step from the
                 CPU's model on the same batches
+ 12. selection  (runs before 8) examples/selection_grid_torch.py's grid
+                (the eight policies x loss {0.1, 0.2, 0.3}, traced,
+                FedAvg, TRA group_rate, GE, N=30 on the FCC draw 2026,
+                C=10) for 60 rounds through run_grid, the counts set to 0
+                just before and read just after (one uplink_fused_batched
+                with the masked norms and one netsim_mask a round); the
+                bias headline (tests/test_selection_bias.py's setup: N=40,
+                C=8, 40 rounds, TRA 10%; uniform, bandwidth_threshold at
+                0.05, the same with explore=1) on the card, one
+                uplink_fused a round, and on the CPU: cohorts bitwise,
+                the bottom speed quartile's share printed; gradient_norm
+                (EF) and staleness_aware (0.1 s deadline, AR(1) walk)
+                through FederatedServer for 40 rounds each, one
+                uplink_fused a round; and 5 rounds of every policy, each
+                with the model its score needs, on the card and the CPU:
+                each round from the CPU's state with equal cohorts,
+                quarantine counts, arrivals and lateness, reputation and
+                controller memories, params and the norm, loss and EF
+                memories at the parity tolerances; phase 8 profiles a
+                traced grid round, a gradient_norm round and a
+                staleness_aware round
 """
 from __future__ import annotations
 
@@ -206,6 +228,7 @@ from repro_torch.core import client_updates as cu  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.lossbudget import LossBudgetConfig  # noqa: E402
 from repro_torch.core.mlp import mlp_init, mlp_weighted_loss  # noqa: E402
+from repro_torch.core.selection import SelectionConfig  # noqa: E402
 from repro_torch.core.server import (FederatedServer, FLConfig,  # noqa: E402
                                      run_grid)
 from repro_torch.core.sweep import SweepEngine  # noqa: E402
@@ -263,6 +286,9 @@ from _torch_channel_cases import (FEC_G, GE_VARIANTS, MASK_P,  # noqa: E402
                                   SEEDS, fec_case, ge_case)
 # the grid axes past 65,535 and SCAFFOLD's uplink shape, shared likewise
 import _torch_wide_cases as wide  # noqa: E402
+# the traced selection grid, the example's
+sys.path.insert(1, os.path.join(ROOT, "examples"))
+import selection_grid_torch as sel_example  # noqa: E402
 
 # H100 SXM HBM3 rate (NVIDIA data sheet); the byte bound divides by it
 HBM_BYTES_PER_S = 3.35e12
@@ -353,6 +379,9 @@ FD_PATH_SHAPE = (2, 20, 1, 128, 25)     # B, KV, G, dh, T of the serve
 FD_GQA_PATH_SHAPE = (2, 4, 12, 128, 25)  # the starcoder2-15b serve's
 FD_LONG_SHAPES = ((8, 20, 1, 128, 32768), (8, 4, 12, 128, 32768))
 ALGO_ROUNDS = 40                # the Fig. 9, Fig. 5 and `beyond` cells
+SEL_ROUNDS = 60                 # the traced selection grid's rounds
+BIAS_N, BIAS_ROUNDS = 40, 40    # tests/test_selection_bias.py's setup
+SEL_DEADLINE_S = 0.1            # the staleness cases' upload deadline
 
 
 def fail(msg: str) -> None:
@@ -2769,6 +2798,260 @@ def run_algo_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+def run_selection_grid(card):
+    """The example's traced grid (every selection policy x loss {0.1,
+    0.2, 0.3}, 24 cells, GE channel) through run_grid for SEL_ROUNDS
+    rounds, the counts set to 0 just before and read just after: one
+    uplink_fused_batched and one netsim_mask a round. Returns the counts
+    and cell-rounds/s."""
+    data, nets = sel_example.inputs()
+    run_grid(sel_example.grid(2), data, nets)        # warm-up, not counted
+    torch.cuda.synchronize()
+    cfgs = sel_example.grid(SEL_ROUNDS)
+    zero_counts()
+    t0 = time.perf_counter()
+    hists = run_grid(cfgs, data, nets)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    check_histories("selection grid", hists, SEL_ROUNDS, len(cfgs))
+    want = expect(uplink_fused_batched=SEL_ROUNDS, netsim_mask=SEL_ROUNDS)
+    if got != want:
+        fail(f"selection grid launches {got}, expected {want}")
+    rate = len(cfgs) * SEL_ROUNDS / secs
+    print(f"[select] traced selection grid, {len(cfgs)} cells x "
+          f"{SEL_ROUNDS} rounds through run_grid: {secs:.3f} s, "
+          f"{rate:.1f} cell-rounds/s ({SEL_ROUNDS / secs:.1f} grid "
+          f"rounds/s), launches {got} | {card}", flush=True)
+    for i in range(0, len(cfgs), len(sel_example.LOSS_RATES)):
+        reps = [h[-1].report for h in
+                hists[i:i + len(sel_example.LOSS_RATES)]]
+        print(f"[select]   {cfgs[i].sel.policy:20s} sample acc at loss "
+              + " / ".join(f"{r.sample_average * 100:5.1f}%" for r in reps)
+              + ", variance " + " / ".join(f"{r.variance:6.0f}"
+                                           for r in reps), flush=True)
+    return got, rate
+
+
+def bias_inputs():
+    """tests/test_selection_bias.py's data and FCC draw (seed 2026)."""
+    data = generate_synthetic(np.random.default_rng(0), n_clients=BIAS_N,
+                              alpha=0.5, beta=0.5)
+    return data, sample_networks(np.random.default_rng(2026), BIAS_N)
+
+
+def bias_cfg(policy, **sel):
+    return FLConfig(algo="fedavg", n_rounds=BIAS_ROUNDS,
+                    clients_per_round=8, local_steps=1, batch_size=8,
+                    eval_every=10 ** 6, seed=0,
+                    sel=SelectionConfig(policy=policy, **sel),
+                    tra=TRAConfig(enabled=True, loss_rate=0.1))
+
+
+def check_bias_headline(card):
+    """The paper's bias result at the reference test's setup (N = 40,
+    C = 8, 40 rounds, TRA 10%): uniform, bandwidth_threshold at 0.05 and
+    the same with explore=1, on the card and the CPU. Cohorts bitwise
+    (these scores read no training state); the bottom speed quartile's
+    share of the cohort slots is printed, not held (the reference's own
+    margin test fails on this tree). One uplink_fused a card round."""
+    data, nets = bias_inputs()
+    logbw = np.log(nets.upload_mbps.astype(np.float32))
+    margin = float(np.abs(logbw - np.log(np.float32(2.0))).min())
+    if margin < 1e-4:
+        fail(f"a client's log speed lies {margin:.2e} from the 2 Mbps cut")
+    bottom = np.argsort(nets.upload_mbps)[:BIAS_N // 4]
+    cells = (("uniform", bias_cfg("uniform")),
+             ("bandwidth_threshold t=0.05",
+              bias_cfg("bandwidth_threshold", temperature=0.05)),
+             ("bandwidth_threshold t=0.05 explore=1",
+              bias_cfg("bandwidth_threshold", temperature=0.05,
+                       explore=1.0)))
+
+    def cohorts(dev):
+        out = {}
+        for label, cfg in cells:
+            srv = FederatedServer(cfg, data, nets, device=dev)
+            _, logs = srv.engine.run_block(srv.engine.init_state(srv.params),
+                                           0, BIAS_ROUNDS)
+            out[label] = logs["ids"]
+        return out
+
+    zero_counts()
+    on_card = cohorts("cuda")
+    got = counts()
+    if got != expect(uplink_fused=len(cells) * BIAS_ROUNDS):
+        fail(f"bias headline launches {got}")
+    on_cpu = cohorts("cpu")
+    shares = {}
+    for label, _ in cells:
+        if not np.array_equal(on_card[label], on_cpu[label]):
+            fail(f"bias headline {label}: cohorts differ between cuda and "
+                 f"cpu")
+        shares[label] = float(np.isin(on_card[label], bottom).mean())
+    print(f"[select] bias headline (N={BIAS_N}, C=8, {BIAS_ROUNDS} rounds, "
+          f"TRA 10%, FCC draw 2026; {int((nets.upload_mbps < 2).sum())} "
+          f"clients under 2 Mbps, log-speed margin to the cut "
+          f"{margin:.2e}): bottom-quartile share of cohort slots "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+          + " (population share 0.25); cohorts equal on cuda and cpu, "
+          f"launches {got} | {card}", flush=True)
+    return shares
+
+
+GE_NET = dict(channel="gilbert_elliott", burst_len=4.0)
+DEADLINE_NET = dict(bw_ar1=True, bw_rho=0.8, deadline=True,
+                    deadline_s=SEL_DEADLINE_S)
+# label, selection, other FLConfig fields; each with the model its
+# score needs
+SEL_CASES = (
+    ("bandwidth_threshold", dict(policy="bandwidth_threshold",
+                                 temperature=0.05), {}),
+    ("gradient_norm", dict(policy="gradient_norm"),
+     dict(error_feedback=True)),
+    ("loss_aware", dict(policy="loss_aware"), {}),
+    ("netsim_state", dict(policy="netsim_state", temperature=0.05),
+     dict(netsim=NetSimConfig(**GE_NET))),
+    ("staleness_aware", dict(policy="staleness_aware"),
+     dict(netsim=NetSimConfig(**DEADLINE_NET))),
+    ("reputation_aware", dict(policy="reputation_aware"),
+     dict(faults=FaultConfig(enabled=True, bitflip_rate=0.5, fail_rate=0.2),
+          defense=DefenseConfig(screen=True, clip=True))),
+    ("recovery_pressure", dict(policy="recovery_pressure"),
+     dict(netsim=NetSimConfig(**GE_NET), recovery=RecoveryConfig(traced=True),
+          lossbudget=LossBudgetConfig(enabled=True, budget=0.05, ema=0.3))),
+    ("traced (gradient_norm)", dict(policy="gradient_norm", traced=True),
+     dict(netsim=NetSimConfig(**GE_NET, **DEADLINE_NET))),
+)
+# the score policies whose scores read no training state: their cohorts
+# stay equal free-running too
+STATELESS_SCORES = ("bandwidth_threshold", "netsim_state")
+SEL_MEMS = ("gnorm_mem", "loss_mem", "stale_mem", "rep_mem", "bud_level",
+            "bud_loss", "ef_mem")
+
+
+def sel_case_cfg(label, n_rounds):
+    _, sel, kw = next(c for c in SEL_CASES if c[0] == label)
+    return FLConfig(algo="fedavg", n_rounds=n_rounds, clients_per_round=10,
+                    local_steps=10, eval_every=10 ** 6,
+                    sel=SelectionConfig(**{"temperature": 0.5, **sel}),
+                    tra=TRAConfig(enabled=True, loss_rate=0.1,
+                                  debias="group_rate"), **kw)
+
+
+def check_selection_card_vs_cpu():
+    """PARITY_ROUNDS rounds of each SEL_CASES policy on the card and the
+    CPU from one seed, at the quickstart's inputs: each round from the
+    CPU's state with equal cohorts, quarantine counts and arrivals,
+    params within the parity tolerances, the norm and loss memories
+    within rtol 1e-5, the lateness, reputation and controller memories
+    bitwise. Free-running cohorts must stay equal where the scores read
+    no training state; elsewhere the rounds they part in are printed."""
+    data, nets = quickstart_inputs()
+    for label, sel, _ in SEL_CASES:
+        cfg = sel_case_cfg(label, PARITY_ROUNDS)
+        srv = {dev: FederatedServer(cfg, data, nets, device=dev)
+               for dev in ("cuda", "cpu")}
+        free = {dev: s._state for dev, s in srv.items()}
+        forced = free["cpu"]
+        worst = worst_mem = 0.0
+        parted = []
+        for t in range(PARITY_ROUNDS):
+            logs = {}
+            for dev, s in srv.items():
+                free[dev], logs[dev] = s.engine.run_block(free[dev], t, 1)
+            if not np.array_equal(logs["cuda"]["ids"], logs["cpu"]["ids"]):
+                if sel["policy"] in STATELESS_SCORES \
+                        or sel["policy"] == "uniform":
+                    fail(f"{label}: free-running cohorts differ between "
+                         f"cuda and cpu at round {t}")
+                parted.append(t)
+            on_card, lg = srv["cuda"].engine.run_block(
+                to_device(forced, "cuda"), t, 1)
+            forced, lc = srv["cpu"].engine.run_block(forced, t, 1)
+            for name in lc:
+                if name != "loss" and not np.array_equal(lg[name],
+                                                         lc[name]):
+                    fail(f"{label} round {t}: {name} differs between cuda "
+                         f"and cpu from the cpu state")
+            vg, vc = grid_params(on_card, 1), grid_params(forced, 1)
+            np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{label} round {t} params")
+            np.testing.assert_allclose(lg["loss"], lc["loss"], rtol=1e-5)
+            worst = max(worst, float(np.abs(vg - vc).max()))
+            for name in SEL_MEMS:
+                a = getattr(on_card, name).cpu().numpy()
+                b = getattr(forced, name).numpy()
+                if name in ("gnorm_mem", "loss_mem", "ef_mem"):
+                    np.testing.assert_allclose(
+                        a, b, rtol=1e-5, atol=1e-6,
+                        err_msg=f"{label} round {t} {name}")
+                    if a.size:
+                        worst_mem = max(worst_mem,
+                                        float(np.abs(a - b).max()))
+                elif not np.array_equal(a, b):
+                    fail(f"{label} round {t}: {name} differs between cuda "
+                         f"and cpu from the cpu state")
+        mem_sizes = {n: getattr(forced, n).numel() for n in SEL_MEMS[:4]}
+        print(f"[parity] {label}, cuda vs cpu, {PARITY_ROUNDS} rounds: "
+              f"round by round from the cpu state cohorts and carries "
+              f"equal, max |param diff| {worst:.3e}, max |norm, loss or "
+              f"EF memory diff| {worst_mem:.3e} (memory sizes "
+              f"{mem_sizes}); free-running cohorts "
+              + ("equal every round" if not parted
+                 else f"part at rounds {parted} (scores of training state)"),
+              flush=True)
+
+
+def policy_rounds_per_s(label, card):
+    """A SEL_CASES policy through FederatedServer for ALGO_ROUNDS rounds
+    after a 2-round warm-up, the counts set to 0 just before and read
+    just after (one uplink_fused a round). Returns rounds/s."""
+    data, nets = quickstart_inputs()
+    FederatedServer(sel_case_cfg(label, 2), data, nets, device="cuda").run()
+    server = FederatedServer(sel_case_cfg(label, ALGO_ROUNDS), data, nets,
+                             device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = server.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    if got != expect(uplink_fused=ALGO_ROUNDS):
+        fail(f"{label}: launches {got}, expected {ALGO_ROUNDS} single "
+             f"uplink launches and no other")
+    losses = [h.train_loss for h in hist]
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label}: bad loss trajectory {losses}")
+    assert_finite_tree(server.params, label)
+    rep = server.evaluate()
+    print(f"[select] {label} round (quickstart inputs, TRA 10%): acc="
+          f"{rep.average * 100:5.1f}% loss {losses[0]:.4f}->"
+          f"{losses[-1]:.4f} {ALGO_ROUNDS / secs:.1f} rounds/s, launches "
+          f"{got} | {card}", flush=True)
+    return ALGO_ROUNDS / secs
+
+
+def run_selection_phase(card):
+    """Phase 12: the traced selection grid through run_grid, the bias
+    headline on the card and the CPU, the gradient_norm and
+    staleness_aware rounds through FederatedServer, and every policy on
+    the card against the CPU. Returns the grid's launch counts."""
+    t_phase = time.perf_counter()
+    got, _ = run_selection_grid(card)
+    check_bias_headline(card)
+    for label in ("gradient_norm", "staleness_aware"):
+        policy_rounds_per_s(label, card)
+    check_selection_card_vs_cpu()
+    print(f"[select] the selection phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return got
+
+
+# ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
 def median_ms(fn, reps=100, warmup=10):
@@ -3264,6 +3547,43 @@ def profile_algo_grid(card, n=5):
                   wall_ms, n)
 
 
+def profile_selection_grid(card, n=5):
+    """Device busy share and top kernels over ``n`` rounds of the traced
+    selection grid (24 cells)."""
+    data, nets = sel_example.inputs()
+    eng = SweepEngine.from_configs(sel_example.grid(n + 2), data, nets)
+    st = eng.init_states()
+    st, _ = eng.run_block(st, 0, 2)                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = eng.run_block(st, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} traced selection-grid rounds (24 cells) | {card}",
+                  prof, wall_ms, n)
+
+
+def profile_policy_rounds(card, label, n=5):
+    """Device busy share and top kernels over ``n`` rounds of a phase-12
+    policy through FederatedServer (quickstart inputs, TRA 10%)."""
+    data, nets = quickstart_inputs()
+    server = FederatedServer(sel_case_cfg(label, n + 2), data, nets,
+                             device="cuda")
+    state = server.engine.init_state(server.params)
+    state, _ = server.engine.run_block(state, 0, 2)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = server.engine.run_block(state, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} {label} rounds (TRA 10%) | {card}", prof, wall_ms,
+                  n)
+
+
 def profile_host_loop(card, n=5, algo="fedavg"):
     """Device busy share and top kernels over ``n`` host-loop rounds
     (10 local steps of 32): FedAvg with the sufficiency report, or the
@@ -3322,6 +3642,7 @@ def main() -> int:
     proto_counts = run_protocol_phase(card)
     fd_launches, fd_err, fd_t = run_serve_phase(card)
     run_algo_phase(card)
+    run_selection_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
     time_uplink(wide.SCAFFOLD_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
@@ -3355,6 +3676,9 @@ def main() -> int:
     profile_algo_rounds(card, "pfedme")
     profile_algo_rounds(card, "scaffold")
     profile_algo_grid(card)
+    profile_selection_grid(card)
+    for label in ("gradient_norm", "staleness_aware"):
+        profile_policy_rounds(card, label)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [

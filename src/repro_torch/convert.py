@@ -46,16 +46,10 @@ def net_state_from_jax(net, device) -> NetSimState:
 def engine_state_from_jax(state, device) -> EngineState:
     """The reference's ``EngineState`` (fields as arrays) -> the port's:
     params, EF memory, AFL weights, simulator state (the downlink chain
-    included), the fault model's echo memory, the stale-model buffer,
-    the loss-budget controller's carries and SCAFFOLD's control
-    variates, single or stacked along a scenario axis. The reputation memory is carried over only as the
-    (0,) the port holds: the policy that reads it is not ported."""
-    rep = np.asarray(state.rep_mem)
-    if rep.size:
-        raise NotImplementedError(
-            "the reputation memory (reputation_aware selection) is not "
-            "ported to repro_torch yet")
-
+    included), the fault model's echo and reputation memories, the
+    stale-model buffer, the loss-budget controller's carries, SCAFFOLD's
+    control variates and the selection scores' memories, single or
+    stacked along a scenario axis."""
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -64,10 +58,11 @@ def engine_state_from_jax(state, device) -> EngineState:
                                 for k, v in state.params.items()}, device),
         ef_mem=f32(state.ef_mem), lam=f32(state.lam),
         net=net_state_from_jax(state.net, device),
-        echo_mem=f32(state.echo_mem), rep_mem=f32(rep),
+        echo_mem=f32(state.echo_mem), rep_mem=f32(state.rep_mem),
         stale_model=f32(state.stale_model), bud_level=f32(state.bud_level),
         bud_loss=f32(state.bud_loss), c_global=f32(state.c_global),
-        c_i=f32(state.c_i))
+        c_i=f32(state.c_i), gnorm_mem=f32(state.gnorm_mem),
+        loss_mem=f32(state.loss_mem), stale_mem=f32(state.stale_mem))
 
 
 def model_params_from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:

@@ -13,7 +13,11 @@ One round is:
                    with recovery built in C·P ARQ and C·Gn parity draws,
                    and with the downlink on C·P (i.i.d.) or 2·C·P (GE)
                    broadcast draws (the reference's layout, bit for bit),
-  * selection    — uniform Gumbel-top-k over the eligibility mask,
+  * selection    — weighted Gumbel-top-k over the eligibility mask
+                   (``core/selection.py``): uniform, or scored by one
+                   policy, or with ``sel.traced`` by the scenario's
+                   policy one-hot; the scores read the carries before
+                   this round's training,
   * downlink     — with ``down_channel`` on, the broadcast loses packets
                    (i.i.d., or each client's second Gilbert–Elliott
                    chain through ``kernels/netsim_mask``) and each
@@ -35,7 +39,8 @@ One round is:
                    one-hot or the loss-budget controller's per-client
                    level; then the sufficiency override, the AR(1)
                    bandwidth step for all N
-                   clients and the sync deadline drop; with faults on,
+                   clients and the sync deadline drop (and the rounds
+                   late that ``staleness_aware`` remembers); with faults on,
                    packet faults (corruption, bit flips) on what is
                    delivered,
   * TRA uplink   — ONE ``uplink_round`` call: EF re-inject, debias
@@ -48,7 +53,9 @@ One round is:
                    its mixture weights), pFedMe's beta mix, q-FedAvg's
                    h-normalised step or SCAFFOLD's model and control-
                    variate steps; AFL's weights ascend on the new model's
-                   losses; then the stale-model and controller carries.
+                   losses; then the stale-model and controller carries
+                   and the selection scores' memories (norms, losses,
+                   lateness, reputation) at the cohort.
 
 Scenario-varying inputs ride a ``ScenarioCtx`` argument, never the
 step's closure, so ``core/sweep.py`` can stack S scenarios behind a
@@ -56,17 +63,17 @@ leading axis and ``torch.func.vmap`` the same step over them: the
 kernels batch through their ops' vmap rules. Static structure
 (algorithm, debias mode, cohort size, local steps, batch size, TRA
 on/off, error feedback, the netsim model selection, ``faults.enabled``,
-``defense.trim_k``, the recovery policy unless traced, the FEC group and
-``lossbudget.enabled``) stays in the closure and must be shared across a
-sweep.
+``defense.trim_k``, the selection policy unless traced, the recovery
+policy unless traced, the FEC group and ``lossbudget.enabled``) stays in
+the closure and must be shared across a sweep.
 
-This port runs the reference's round with: all six algorithms,
-uniform selection, the sync server, the iid and Gilbert–Elliott
-channels, the AR(1) bandwidth walk, the deadline, the fault model with
-its defenses, the downlink model, the recovery policies and the
-loss-budget controller. No telemetry, no reputation memory. With the
-downlink off, one_shot recovery and the controller off, the step is the
-one of the earlier slices, bit for bit. ``run_block`` is a
+This port runs the reference's round with: all six algorithms, all
+eight selection policies (static or traced), the sync server, the iid
+and Gilbert–Elliott channels, the AR(1) bandwidth walk, the deadline,
+the fault model with its defenses, the downlink model, the recovery
+policies and the loss-budget controller. No telemetry. With uniform
+selection, the downlink off, one_shot recovery and the controller off,
+the step is the one of the earlier slices, bit for bit. ``run_block`` is a
 Python loop over the same step ``run_single`` runs, so the block and
 per-round paths agree by construction.
 """
@@ -83,7 +90,7 @@ from repro_torch import prng
 from repro_torch.core import client_updates as cu
 from repro_torch.core import lossbudget as bud_mod
 from repro_torch.core.mlp import mlp_weighted_loss
-from repro_torch.core.selection import select_from_uniforms
+from repro_torch.core import selection as sel_mod
 from repro_torch.core.tra import flatten_clients, unflatten_like
 from repro_torch.data.synthetic import DeviceDataset, stage_on_device
 from repro_torch.kernels.fec_recover import ops as fec_ops
@@ -95,10 +102,12 @@ from repro_torch.netsim.bandwidth import logbw_round_step
 from repro_torch.netsim.channel import ge_transition_probs
 from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim import recovery as rec_mod
-from repro_torch.netsim.delivery import (deadline_delivered,
+from repro_torch.netsim.delivery import (arrival_lateness,
+                                         deadline_delivered,
                                          round_upload_seconds)
 from repro_torch.netsim.state import NetSimState, init_net_state
 from repro_torch.network.packets import n_packets
+from repro_torch.network.trace import log_upload_speeds
 
 ENGINE_ALGOS = ("fedavg", "qfedavg", "pfedme", "perfedavg", "afl",
                 "scaffold")
@@ -113,9 +122,10 @@ class EngineState(NamedTuple):
     # fault-model carries; (0,) when faults.enabled is False:
     # the last genuine upload of each client, what an echo replays
     echo_mem: torch.Tensor  # (N, D_up) f32, or (0,)
-    # the reputation memory of the reputation_aware selection policy,
-    # which is not ported: always (0,)
-    rep_mem: torch.Tensor   # (0,)
+    # the cumulative quarantined-packet fraction of each client, which
+    # the reputation_aware selection policy reads; (0,) unless faults
+    # are on and that policy (or traced selection) needs it
+    rep_mem: torch.Tensor   # (N,) f32, or (0,)
     # each client's last-received model, the stale fallback under
     # downlink loss; (0,) unless the downlink is on with the stale fallback
     stale_model: torch.Tensor  # (N, D) f32, or (0,)
@@ -128,6 +138,15 @@ class EngineState(NamedTuple):
     # so that the carries of the earlier steps keep their positions)
     c_global: torch.Tensor     # (D,) the server variate, or (0,)
     c_i: torch.Tensor          # (N, D) the client variates, or (0,)
+    # the selection scores' memories (core/selection.py), scattered at
+    # the cohort each round and read by the next round's selection: the
+    # last masked squared update norm (gradient_norm), the last train
+    # loss (loss_aware) and the last rounds late against the deadline
+    # (staleness_aware); (0,) unless the policy, or traced selection,
+    # needs them
+    gnorm_mem: torch.Tensor    # (N,) f32, or (0,)
+    loss_mem: torch.Tensor     # (N,) f32, or (0,)
+    stale_mem: torch.Tensor    # (N,) f32, or (0,)
 
 
 class ScenarioCtx(NamedTuple):
@@ -145,6 +164,13 @@ class ScenarioCtx(NamedTuple):
     bad_loss: torch.Tensor   # () f32 BAD-state per-packet loss (GE)
     bw_rho: torch.Tensor     # () f32 AR(1) round-to-round correlation
     deadline_s: torch.Tensor  # () f32 per-round upload deadline
+    # selection knobs (the policy is static, or this one-hot when traced)
+    sel_threshold: torch.Tensor  # () f32 bandwidth_threshold cut (Mbps)
+    sel_temp: torch.Tensor   # () f32 softmax temperature on the score
+    sel_explore: torch.Tensor  # () f32 0 = pure policy, 1 = uniform
+    sel_policy: torch.Tensor  # (len(POLICIES),) f32 one-hot
+    sel_logbw: torch.Tensor  # (N,) f32 static log upload speeds for the
+    #                          bandwidth score, or (0,) without the draw
     # fault rates and defense gates (read only when faults.enabled)
     f_corrupt: torch.Tensor  # () f32 P(packet Gaussian-corrupted)
     f_cscale: torch.Tensor   # () f32 corruption noise stddev
@@ -176,8 +202,12 @@ CTX_FAULT_FIELDS = ("f_corrupt", "f_cscale", "f_bitflip", "f_fail",
 # the ScenarioCtx fields of recovery and the controller
 CTX_REC_FIELDS = ("rec_policy", "rec_retries", "rec_backoff", "bud_budget",
                   "bud_ema", "bud_div")
-# every ScenarioCtx field past the data and masks: ``scenario_knobs``
-CTX_KNOB_FIELDS = CTX_NETSIM_FIELDS + CTX_FAULT_FIELDS + CTX_REC_FIELDS
+# the ScenarioCtx fields of the selection policy's knobs
+CTX_SEL_FIELDS = ("sel_threshold", "sel_temp", "sel_explore", "sel_policy")
+# every ScenarioCtx field past the data, the masks and the static log
+# speeds: ``scenario_knobs``
+CTX_KNOB_FIELDS = CTX_NETSIM_FIELDS + CTX_FAULT_FIELDS + CTX_REC_FIELDS \
+    + CTX_SEL_FIELDS
 
 
 def fault_knobs(flt, dfn) -> Dict[str, float]:
@@ -192,21 +222,24 @@ def fault_knobs(flt, dfn) -> Dict[str, float]:
             "d_trim": 1.0 if dfn.trim else 0.0}
 
 
-def scenario_knobs(cfg, ns=None, flt=None, dfn=None, rec=None, bud=None
-                   ) -> Dict[str, np.ndarray]:
+def scenario_knobs(cfg, ns=None, flt=None, dfn=None, rec=None, bud=None,
+                   sel=None) -> Dict[str, np.ndarray]:
     """The CTX_KNOB_FIELDS values of one scenario as float32 arrays: its
-    netsim, fault, defense, recovery and loss-budget configs, each
-    defaulting to ``cfg``'s."""
+    netsim, fault, defense, recovery, loss-budget and selection configs,
+    each defaulting to ``cfg``'s."""
     ns = cfg.netsim if ns is None else ns
     rec = cfg.recovery if rec is None else rec
     bud = cfg.lossbudget if bud is None else bud
+    sel = cfg.sel if sel is None else sel
     knobs = {f: getattr(ns, f) for f in CTX_NETSIM_FIELDS}
     knobs.update(fault_knobs(cfg.faults if flt is None else flt,
                              cfg.defense if dfn is None else dfn))
     knobs.update(rec_policy=rec_mod.recovery_onehot(rec.policy),
                  rec_retries=rec.retries, rec_backoff=rec.backoff,
                  bud_budget=bud.budget, bud_ema=bud.ema,
-                 bud_div=bud.div_gate)
+                 bud_div=bud.div_gate, sel_threshold=sel.threshold_mbps,
+                 sel_temp=sel.temperature, sel_explore=sel.explore,
+                 sel_policy=sel_mod.policy_onehot(sel.policy))
     return {f: np.asarray(knobs[f], np.float32) for f in CTX_KNOB_FIELDS}
 
 
@@ -217,7 +250,7 @@ SWEEP_VARYING_TRA_FIELDS = ("loss_rate", "threshold_mbps")
 SWEEP_VARYING_NETSIM_FIELDS = ("burst_len", "good_loss", "bad_loss",
                                "bw_rho", "deadline_s", "down_loss",
                                "down_deadline_s")
-SWEEP_VARYING_SEL_FIELDS = ("threshold_mbps", "temperature", "explore")
+SWEEP_VARYING_SEL_FIELDS = sel_mod.SWEEP_VARYING_SEL_FIELDS
 SWEEP_VARYING_REC_FIELDS = rec_mod.SWEEP_VARYING_REC_FIELDS
 SWEEP_VARYING_BUD_FIELDS = bud_mod.SWEEP_VARYING_BUD_FIELDS
 
@@ -232,6 +265,10 @@ def static_signature(cfg):
         cfg.netsim, **{f: 0.0 for f in SWEEP_VARYING_NETSIM_FIELDS})
     sel = dataclasses.replace(
         cfg.sel, **{f: 0.0 for f in SWEEP_VARYING_SEL_FIELDS})
+    if sel.traced:
+        # the policy rides ScenarioCtx.sel_policy: traced configs share
+        # one step across all eight policies
+        sel = dataclasses.replace(sel, policy="uniform")
     flt = dataclasses.replace(
         cfg.faults,
         **{f: 0.0 for f in faults_mod.SWEEP_VARYING_FAULT_FIELDS})
@@ -258,6 +295,15 @@ def _static_key(cfg):
         static_signature(cfg), n_rounds=0, eval_every=0, engine="scan"))
 
 
+def static_logbw(upload_mbps, device) -> torch.Tensor:
+    """``ScenarioCtx.sel_logbw``: the (N,) f32 log upload speeds of the
+    bandwidth score, or (0,) without a trace draw. The log is taken on
+    the host, so every device scores the same bits."""
+    if upload_mbps is None:
+        return torch.zeros((0,), device=device)
+    return log_upload_speeds(upload_mbps).to(device)
+
+
 def validate_device_config(cfg, device) -> None:
     """Raise for a configuration that runs on the CPU but not on the
     card; called where an engine learns its device, before any round.
@@ -275,22 +321,35 @@ def validate_device_config(cfg, device) -> None:
 
 
 def validate_round_config(cfg) -> None:
-    """Raise for configurations the reference refuses and for those
-    the port has not ported."""
+    """Raise for configurations the reference refuses."""
     if cfg.algo not in ENGINE_ALGOS:
         raise ValueError(f"unknown algo {cfg.algo!r} (one of "
                          f"{ENGINE_ALGOS})")
-    if not cfg.sel.traced and cfg.sel.policy == "recovery_pressure" \
-            and not cfg.lossbudget.enabled:
+    ns = cfg.netsim
+    # a static policy whose score source the configuration lacks; traced
+    # selection scores such a policy as zeros (uniform) instead
+    policy = None if cfg.sel.traced else cfg.sel.policy
+    if policy == "netsim_state" and ns.channel != "gilbert_elliott":
+        raise ValueError(
+            "selection policy 'netsim_state' scores the Gilbert-Elliott "
+            "channel state and requires netsim.channel='gilbert_elliott' "
+            "(with the iid channel there is no state to prefer)")
+    if policy == "staleness_aware" and not ns.deadline:
+        raise ValueError(
+            "selection policy 'staleness_aware' scores observed deadline "
+            "lateness and requires netsim.deadline=True (without a "
+            "deadline nothing is ever late)")
+    if policy == "reputation_aware" and not cfg.faults.enabled:
+        raise ValueError(
+            "selection policy 'reputation_aware' scores quarantine counts "
+            "and requires faults.enabled=True (without the fault path "
+            "nothing is ever quarantined)")
+    if policy == "recovery_pressure" and not cfg.lossbudget.enabled:
         raise ValueError(
             "selection policy 'recovery_pressure' scores the loss-budget "
             "controller's escalation state and requires "
             "lossbudget.enabled=True (without the controller there is no "
             "pressure signal)")
-    if cfg.sel.traced or cfg.sel.policy != "uniform":
-        raise NotImplementedError(
-            "only the uniform selection policy is ported to repro_torch")
-    ns = cfg.netsim
     if ns.channel != "iid" and not cfg.tra.enabled:
         raise ValueError(
             f"netsim channel={ns.channel!r} models lossy TRA uploads "
@@ -346,6 +405,11 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
         return torch.zeros((n_clients, *cols), device=dev) if on \
             else torch.zeros((0,), device=dev)
 
+    sel = cfg.sel
+
+    def score_mem(policy):
+        return per_client(sel.traced or sel.policy == policy)
+
     if base_key is None:
         base_key = prng.PRNGKey(cfg.seed, device=dev)
     if loss_rate is None:
@@ -358,7 +422,8 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
         net=init_net_state(ns, n_clients, device=dev, base_key=base_key,
                            loss_rate=loss_rate, upload_mbps=upload_mbps),
         echo_mem=per_client(cfg.faults.enabled, (up_dim,)),
-        rep_mem=torch.zeros((0,), device=dev),
+        rep_mem=per_client(cfg.faults.enabled and (
+            sel.traced or sel.policy == "reputation_aware")),
         # every client starts having received the initial broadcast
         stale_model=flatten_clients(params, 1).expand(n_clients, D).clone()
         if ns.down_channel != "off" and ns.down_fallback == "stale"
@@ -366,7 +431,10 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
         bud_level=per_client(cfg.lossbudget.enabled),
         bud_loss=per_client(cfg.lossbudget.enabled),
         c_global=torch.zeros((D if scaffold else 0,), device=dev),
-        c_i=per_client(scaffold, (D,)))
+        c_i=per_client(scaffold, (D,)),
+        gnorm_mem=score_mem("gradient_norm"),
+        loss_mem=score_mem("loss_aware"),
+        stale_mem=score_mem("staleness_aware"))
 
 
 def make_round_step(cfg, cohort: int):
@@ -420,6 +488,14 @@ def make_round_step(cfg, cohort: int):
     use_down = ns.down_channel != "off"
     down_ge = ns.down_channel == "gilbert_elliott"
     down_stale = ns.down_fallback == "stale"
+    # selection: the policy (or "traced") is static; each memory is
+    # built in when its policy, or traced selection, reads it
+    traced_sel = cfg.sel.traced
+    policy = cfg.sel.policy
+    need_gnorm = traced_sel or policy == "gradient_norm"
+    need_loss = traced_sel or policy == "loss_aware"
+    need_stale = traced_sel or policy == "staleness_aware"
+    need_rep = use_faults and (traced_sel or policy == "reputation_aware")
 
     def step(ctx: ScenarioCtx, state: EngineState, t: int):
         dd = ctx.data
@@ -461,7 +537,23 @@ def make_round_step(cfg, cohort: int):
             u_de = u_all[off + C * P_dn:off + 2 * C * P_dn] \
                 .reshape(C, P_dn) if down_ge else None
 
-        ids = select_from_uniforms(u_sel, None, ctx.eligible, C)
+        # selection reads the carries as the previous round left them,
+        # before this round's training, as a real server would; the
+        # uniform policy's logits are None (the uniform expression)
+        scores = dict(
+            temperature=ctx.sel_temp, explore=ctx.sel_explore,
+            threshold_mbps=ctx.sel_threshold,
+            logbw=state.net.logbw if use_bw else ctx.sel_logbw,
+            gnorm_mem=state.gnorm_mem, loss_mem=state.loss_mem,
+            channel=state.net.channel, stale_mem=state.stale_mem,
+            rep_mem=state.rep_mem, bud_level=state.bud_level,
+            bud_loss=state.bud_loss)
+        if traced_sel:
+            logits = sel_mod.traced_policy_logits(ctx.sel_policy, **scores,
+                                                  n_clients=N)
+        else:
+            logits = sel_mod.policy_logits(policy, **scores)
+        ids = sel_mod.select_from_uniforms(u_sel, logits, ctx.eligible, C)
         counts = dd.counts[ids]                              # (C,)
         c3 = counts[:, None, None]
         idx = torch.minimum((u_idx * c3).to(torch.int32), c3 - 1)
@@ -592,7 +684,7 @@ def make_round_step(cfg, cohort: int):
         if use_bw:
             # time passes for every client: one AR(1) step on all N
             net_logbw = logbw_round_step(key, net_logbw, ctx.bw_rho)
-        arrival = None
+        arrival = lateness = None
         if use_dl:
             # sync deadline: retransmitters push ~P/(1-r) packets, TRA
             # one-shots push P; a miss drops the whole upload, while its
@@ -613,6 +705,8 @@ def make_round_step(cfg, cohort: int):
                 secs = round_upload_seconds(
                     P, Fp, torch.exp(net_logbw[ids]), lr_c, retransmit)
             delivered = deadline_delivered(secs, ctx.deadline_s)
+            if need_stale:
+                lateness = arrival_lateness(secs, ctx.deadline_s)
             pkt_mask = pkt_mask * delivered[:, None]
             arrival = delivered
 
@@ -641,8 +735,10 @@ def make_round_step(cfg, cohort: int):
             w_agg, mult, want_ssq = state.lam[ids], None, False
         else:
             w_agg, mult, want_ssq = weights, None, False
-        # the controller reads the masked norms as its divergence signal
-        want_ssq = want_ssq or use_bud
+        # gradient_norm scores the next round's cohort by the masked norms
+        # this same uplink pass computes; the controller reads them as its
+        # divergence signal
+        want_ssq = want_ssq or need_gnorm or use_bud
 
         if use_faults:
             # defended uplink: finite-screen quarantine (bad packets as if
@@ -712,6 +808,16 @@ def make_round_step(cfg, cohort: int):
                 div_gate=ctx.bud_div)
             bud_level = bud_level.index_copy(0, ids, lv)
             bud_loss = bud_loss.index_copy(0, ids, ema_new)
+        # the selection scores' memories, for the next round's selection
+        gnorm_new = state.gnorm_mem.index_copy(0, ids, ssq) if need_gnorm \
+            else state.gnorm_mem
+        loss_new = state.loss_mem.index_copy(0, ids, aux["loss0"]) \
+            if need_loss else state.loss_mem
+        late_new = state.stale_mem.index_copy(0, ids, lateness) \
+            if need_stale and use_dl else state.stale_mem
+        # the reputation accumulates each round's quarantined fraction
+        rep_new = state.rep_mem.index_add(0, ids, rob.qcnt / P) \
+            if need_rep else state.rep_mem
         logs = {"loss": aux["loss0"].mean(), "ids": ids}
         if use_faults:
             # per-cohort-slot quarantined-packet counts
@@ -721,10 +827,19 @@ def make_round_step(cfg, cohort: int):
             logs["arrival"] = arrival
         net = NetSimState(net_channel, net_logbw, net_down)
         return EngineState(new_params, new_ef, lam, net, echo_new,
-                           state.rep_mem, stale_new, bud_level, bud_loss,
-                           c_global, c_i), logs
+                           rep_new, stale_new, bud_level, bud_loss,
+                           c_global, c_i, gnorm_new, loss_new,
+                           late_new), logs
 
     return step
+
+
+def gumbel_topk_select(key: torch.Tensor, eligible: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """A uniform sample of ``k`` clients without replacement from the
+    eligible set, on ``key``'s device (Gumbel-top-k, uniform weights):
+    ``selection.select_clients`` with no scores."""
+    return sel_mod.select_clients(key, None, eligible, k)
 
 
 class RoundScanEngine:
@@ -759,6 +874,12 @@ class RoundScanEngine:
                 and upload_mbps is None:
             raise ValueError("netsim bandwidth/deadline models need "
                              "the trace draw (pass nets.upload_mbps)")
+        if (cfg.sel.traced or cfg.sel.policy == "bandwidth_threshold") \
+                and upload_mbps is None:
+            raise ValueError(
+                "the bandwidth_threshold selection score (and the traced "
+                "policy family, which includes it) needs the trace draw "
+                "(pass nets.upload_mbps)")
         self._upload_mbps = None if upload_mbps is None \
             else np.asarray(upload_mbps, np.float32)
         dev = self.device
@@ -770,6 +891,7 @@ class RoundScanEngine:
             sufficient=torch.tensor(np.asarray(sufficient, np.float32),
                                     device=dev),
             data=self.dd,
+            sel_logbw=static_logbw(self._upload_mbps, dev),
             **{f: torch.tensor(v, device=dev)
                for f, v in scenario_knobs(cfg).items()})
 

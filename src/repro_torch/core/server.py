@@ -39,8 +39,9 @@ from repro_torch.device import resolve_device
 from repro_torch.netsim.config import NetSimConfig
 from repro_torch.netsim.faults import DefenseConfig, FaultConfig
 from repro_torch.netsim.recovery import RecoveryConfig
-from repro_torch.network.trace import (ClientNetworks, eligible_mask_device,
-                                       sample_networks)
+from repro_torch.network.trace import (ClientNetworks, eligible_by_ratio,
+                                       eligible_by_threshold,
+                                       eligible_mask_device, sample_networks)
 
 
 @dataclasses.dataclass
@@ -56,7 +57,9 @@ class FLConfig:
     lr: float = 0.1
     selection: str = "all"            # all|ratio|threshold
     eligible_ratio: float = 1.0       # for selection="ratio"
-    # how the draw is weighted among the eligible (uniform only, here)
+    # how the draw is weighted among the eligible: the score-based
+    # policy family (core/selection.py), all eight policies, static or
+    # traced; ``selection`` above gates eligibility
     sel: SelectionConfig = dataclasses.field(
         default_factory=SelectionConfig)
     tra: TRAConfig = dataclasses.field(default_factory=TRAConfig)
@@ -179,6 +182,25 @@ class FederatedServer:
     @property
     def _lambda(self) -> np.ndarray:
         return self._state.lam.cpu().numpy()      # AFL state
+
+    # -- selection ----------------------------------------------------------
+    def eligible_mask(self) -> np.ndarray:
+        """(N,) bool eligibility of ``cfg.selection`` on the host."""
+        cfg = self.cfg
+        if cfg.selection == "all":
+            return np.ones(self.data.n_clients, bool)
+        if cfg.selection == "ratio":
+            return eligible_by_ratio(self.nets, cfg.eligible_ratio)
+        if cfg.selection == "threshold":
+            return eligible_by_threshold(self.nets, cfg.tra.threshold_mbps)
+        raise ValueError(cfg.selection)
+
+    def select(self) -> np.ndarray:
+        """A host-side uniform cohort from the server's numpy generator
+        (the engine selects on the device)."""
+        elig = np.flatnonzero(self.eligible_mask())
+        n = min(self.cfg.clients_per_round, len(elig))
+        return self.rng.choice(elig, n, replace=False)
 
     # -- public API ---------------------------------------------------------
     def run_round(self, t: int) -> RoundLog:

@@ -5,11 +5,14 @@ structure: the PRNG seed, the TRA loss rate, the eligibility and
 sufficiency masks, the dataset draw, the netsim knobs (burst length,
 emission rates, bandwidth correlation, deadline, downlink loss rate and
 deadline), the fault rates and the defense gates, the ARQ retries and
-backoff, the recovery policy itself when traced, and the loss-budget
-controller's budget, EMA and divergence gate. ``SweepEngine``
-stacks S scenarios behind a leading axis: ``ScenarioCtx`` fields become
-(S, ...) tensors, per-scenario ``EngineState``s are stacked, and the
-data is one shared (N, M, D) set or a stacked (S, N, M, D) one.
+backoff, the recovery policy itself when traced, the loss-budget
+controller's budget, EMA and divergence gate, and the selection
+threshold, temperature and exploration (and the selection policy itself
+when traced, so a policy x loss-rate grid is one batched step a round).
+``SweepEngine`` stacks S scenarios behind a leading axis:
+``ScenarioCtx`` fields become (S, ...) tensors, per-scenario
+``EngineState``s are stacked, and the data is one shared (N, M, D) set
+or a stacked (S, N, M, D) one.
 ``torch.func.vmap`` over the SAME round step that ``RoundScanEngine``
 runs then plays every scenario's round at once: each PyTorch launch
 carries S scenarios' work, and the kernels batch through their ops'
@@ -19,10 +22,10 @@ one FEC repair launch per round for the whole grid.
 
 Static structure (algorithm, debias mode, cohort size, local steps,
 batch size, TRA on/off, error feedback, netsim model selection,
-``faults.enabled``, ``defense.trim_k``, the recovery policy unless
-traced, the FEC group, ``lossbudget.enabled``) must be shared across a
-sweep; the constructor and ``from_configs`` check that and raise on a
-mixed grid.
+``faults.enabled``, ``defense.trim_k``, the selection policy unless
+traced, the recovery policy unless traced, the FEC group,
+``lossbudget.enabled``) must be shared across a sweep; the constructor
+and ``from_configs`` check that and raise on a mixed grid.
 """
 from __future__ import annotations
 
@@ -43,10 +46,11 @@ from repro_torch.core.engine import (CTX_KNOB_FIELDS,
                                      SWEEP_VARYING_TRA_FIELDS, EngineState,
                                      ScenarioCtx, init_engine_state,
                                      make_round_step, scenario_knobs,
-                                     static_signature,
+                                     static_logbw, static_signature,
                                      validate_device_config)
 from repro_torch.core.lossbudget import LossBudgetConfig
 from repro_torch.core.mlp import mlp_init
+from repro_torch.core.selection import SelectionConfig
 from repro_torch.data.synthetic import (DeviceDataset, FederatedDataset,
                                         stage_on_device,
                                         stage_scenarios_on_device)
@@ -87,6 +91,10 @@ class Scenario:
     # this cell's loss-budget knobs (None -> the sweep config's);
     # enabled must agree
     lossbudget: Optional[LossBudgetConfig] = None
+    # this cell's selection knobs (None -> the sweep config's): the
+    # threshold, temperature and exploration may vary, the policy only
+    # with sel.traced; traced must agree
+    sel: Optional[SelectionConfig] = None
 
 
 def scenario_from_config(cfg, data: FederatedDataset,
@@ -107,7 +115,7 @@ def scenario_from_config(cfg, data: FederatedDataset,
                     netsim=cfg.netsim, packet_loss=nets.packet_loss,
                     upload_mbps=nets.upload_mbps, faults=cfg.faults,
                     defense=cfg.defense, recovery=cfg.recovery,
-                    lossbudget=cfg.lossbudget)
+                    lossbudget=cfg.lossbudget, sel=cfg.sel)
 
 
 def _netsim_models(ns: NetSimConfig):
@@ -191,6 +199,16 @@ class SweepEngine:
                     f"scenario {i} differs from the sweep config in the "
                     f"static field lossbudget.enabled; only lossbudget."
                     f"{SWEEP_VARYING_BUD_FIELDS} may vary per cell")
+        sels = [s.sel if s.sel is not None else cfg.sel
+                for s in self.scenarios]
+        for i, sc in enumerate(sels):
+            if sc.traced != cfg.sel.traced \
+                    or not (cfg.sel.traced or sc.policy == cfg.sel.policy):
+                raise ValueError(
+                    f"scenario {i} differs from the sweep config in a "
+                    f"static selection field (policy, traced); only sel."
+                    f"{SWEEP_VARYING_SEL_FIELDS} may vary per cell (the "
+                    f"policy itself only with sel.traced)")
         if cfg.tra.per_client_loss:
             if any(s.packet_loss is None for s in self.scenarios):
                 raise ValueError("tra.per_client_loss needs per-client "
@@ -205,9 +223,16 @@ class SweepEngine:
             raise ValueError("netsim bandwidth/deadline models need "
                              "per-client speeds on every Scenario "
                              "(upload_mbps)")
+        have_speeds = all(s.upload_mbps is not None for s in self.scenarios)
+        if (cfg.sel.traced or cfg.sel.policy == "bandwidth_threshold") \
+                and not have_speeds:
+            raise ValueError(
+                "the bandwidth_threshold selection score (and the traced "
+                "policy family) needs per-client speeds on every Scenario "
+                "(upload_mbps)")
         self._step = make_round_step(cfg, self.cohort)   # validates cfg
         knobs = [scenario_knobs(cfg, *per) for per in
-                 zip(nsims, flts, dfns, recs, buds)]
+                 zip(nsims, flts, dfns, recs, buds, sels)]
 
         self.ctx = ScenarioCtx(
             base_key=torch.stack([prng.PRNGKey(s.seed, device=dev)
@@ -220,12 +245,16 @@ class SweepEngine:
                 [np.asarray(s.sufficient, np.float32)
                  for s in self.scenarios]), device=dev),
             data=self.dd,
+            sel_logbw=torch.stack([static_logbw(s.upload_mbps, dev)
+                                   for s in self.scenarios])
+            if have_speeds else torch.zeros((self.n_scenarios, 0),
+                                            device=dev),
             **{f: torch.tensor(np.stack([k[f] for k in knobs]), device=dev)
                for f in CTX_KNOB_FIELDS})
         data_dim = 0 if self.data_batched else None
         ctx_dims = ScenarioCtx(
             base_key=0, loss_rate=0, eligible=0, sufficient=0,
-            data=DeviceDataset(data_dim, data_dim, data_dim),
+            data=DeviceDataset(data_dim, data_dim, data_dim), sel_logbw=0,
             **{f: 0 for f in CTX_KNOB_FIELDS})
         self._vstep = torch.func.vmap(self._step,
                                       in_dims=(ctx_dims, 0, None))
@@ -256,8 +285,9 @@ class SweepEngine:
                     f"{SWEEP_VARYING_SEL_FIELDS}, faults."
                     f"{SWEEP_VARYING_FAULT_FIELDS}, defense."
                     f"{SWEEP_VARYING_DEF_FIELDS}, recovery."
-                    f"{SWEEP_VARYING_REC_FIELDS} (and the policy when "
-                    f"traced) and lossbudget.{SWEEP_VARYING_BUD_FIELDS} may "
+                    f"{SWEEP_VARYING_REC_FIELDS} (and the selection or "
+                    f"recovery policy when traced) and lossbudget."
+                    f"{SWEEP_VARYING_BUD_FIELDS} may "
                     f"vary in one sweep")
         if isinstance(datas, FederatedDataset):
             datas = [datas] * S
@@ -282,7 +312,7 @@ class SweepEngine:
                          packet_loss=n.packet_loss,
                          upload_mbps=n.upload_mbps, faults=c.faults,
                          defense=c.defense, recovery=c.recovery,
-                         lossbudget=c.lossbudget)
+                         lossbudget=c.lossbudget, sel=c.sel)
                 for i, (c, d, n) in enumerate(zip(cfgs, datas, nets))]
         return cls(cfgs[0], scen, device=device)
 

@@ -9,8 +9,9 @@ Under the sync server a missed deadline drops the whole upload. The
 expressions and their guards are the reference's
 (``repro/netsim/delivery.py``), in float32: degenerate inputs give the
 finite ``INFEASIBLE_SECS`` and a deterministic not-delivered bit.
-The async server's ``arrival_lateness`` and ``grace_staleness`` come
-with the async slice.
+``arrival_lateness`` counts the whole rounds an upload is late, which
+the ``staleness_aware`` selection policy remembers; ``grace_staleness``
+comes with the async server.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from repro_torch.kernels.common import RATE_EPS
 PACKET_BYTES_PER_FLOAT = 4  # f32 payload coordinates
 # finite arrival time of an infeasible upload (no, zero or NaN bandwidth)
 INFEASIBLE_SECS = 1.0e30
-# cap on whole rounds late (read by the async slice)
+# cap on whole rounds late: ceil(secs / deadline) stays finite in f32
+# even for INFEASIBLE_SECS over a tiny deadline
 MAX_LATENESS = 1.0e6
 
 
@@ -50,3 +52,16 @@ def deadline_delivered(secs, deadline_s) -> torch.Tensor:
     """(C,) f32: 1 made the deadline, 0 missed it. A degenerate
     deadline (<= 0 or NaN) delivers nothing."""
     return ((secs <= deadline_s) & (deadline_s > 0.0)).to(torch.float32)
+
+
+def arrival_lateness(secs, deadline_s) -> torch.Tensor:
+    """(C,) f32 whole rounds late: 0 on time, ceil(secs / deadline) - 1
+    otherwise, clamped to [0, MAX_LATENESS]. A degenerate deadline (<= 0
+    or not finite) pins every upload at MAX_LATENESS, never NaN."""
+    if not isinstance(deadline_s, torch.Tensor):
+        deadline_s = torch.tensor(deadline_s, dtype=torch.float32,
+                                  device=secs.device)
+    dl_ok = (deadline_s > 0.0) & torch.isfinite(deadline_s)
+    dl = torch.where(dl_ok, deadline_s, 1.0)
+    late = torch.clamp(torch.ceil(secs / dl) - 1.0, 0.0, MAX_LATENESS)
+    return torch.where(dl_ok & torch.isfinite(late), late, MAX_LATENESS)

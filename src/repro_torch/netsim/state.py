@@ -26,6 +26,13 @@ class NetSimState(NamedTuple):
     down: torch.Tensor     # (N,) int32, or (0,)
 
 
+def good_state_scores(net: NetSimState) -> torch.Tensor:
+    """(N,) f32: 1.0 for a client in the GOOD Gilbert–Elliott state, 0.0
+    in BAD, the ``netsim_state`` selection policy's raw score (which
+    reads ``state.net.channel`` through the same expression)."""
+    return 1.0 - net.channel.to(torch.float32)
+
+
 def init_net_state(ns: NetSimConfig, n_clients: int, *, device,
                    base_key=None, loss_rate=None,
                    upload_mbps=None) -> NetSimState:

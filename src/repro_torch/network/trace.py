@@ -118,3 +118,14 @@ def ar1_logspeed_step(logbw, rho, eps, mu: float = SPEED_MU,
     rho = torch.as_tensor(rho, dtype=torch.float32)
     innov = sigma * torch.sqrt(torch.clamp(1.0 - rho * rho, min=0.0))
     return mu + rho * (logbw - mu) + innov * eps
+
+
+def upload_seconds(n_bytes: float, mbps: float, loss: float,
+                   retransmit: bool) -> float:
+    """Analytic upload time of ``n_bytes`` at ``mbps``: with
+    retransmission every lost packet is resent (geometric rounds, an
+    expected 1/(1 - loss)); without (TRA) the client sends once."""
+    base = n_bytes * 8 / (mbps * 1e6)
+    if retransmit and loss < 1.0:
+        return base / (1.0 - loss)
+    return base

@@ -45,7 +45,11 @@ bitwise the launches that hold it below the limit
 (``tests/_torch_wide_cases.py``). The uplink at SCAFFOLD's (10, 72, 256)
 at the uplink tolerances; two rounds of pFedMe, Per-FedAvg, AFL and
 SCAFFOLD on the card against the CPU: cohorts equal, carries rtol 1e-4
-/ atol 1e-5.
+/ atol 1e-5. The uplink with the masked norms on FedAvg weights (the
+gradient_norm policy's traffic), single and at S = 24, at the uplink
+tolerances; a traced selection grid (every policy x two loss rates) on
+the card against the CPU: cohorts and channel states bitwise, a round
+from the CPU's state within the grid tolerances.
 """
 import dataclasses
 
@@ -1428,3 +1432,107 @@ def test_cuda_algorithm_rounds_match_cpu(dev, algo):
         np.testing.assert_allclose(getattr(out["cuda"][1], name).cpu(),
                                    getattr(out["cpu"][1], name), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_ef", [False, True])
+def test_cuda_uplink_fedavg_norms_match_plain(dev, use_ef):
+    """The gradient_norm policy's uplink: a FedAvg round's weights (no
+    q-FedAvg multiplier) with the masked norms requested, through the
+    engine's entry points at the quickstart's (10, 36, 256), one
+    uplink_fused launch, and at the selection grid's S = 24, one
+    uplink_fused_batched launch, against uplink_ref at the uplink
+    tolerances."""
+    Sg, Cq, Pq, Fq, d_up = 24, 10, 36, 256, 9098
+    rng = np.random.default_rng(27)
+    flat = rng.normal(0.0, 0.1, (Sg, Cq, d_up)).astype(np.float32)
+    cnt = rng.integers(20, 200, (Sg, Cq)).astype(np.float32)
+    t = {k: torch.tensor(v, device=dev) for k, v in dict(
+        xp=np.pad(flat, ((0, 0), (0, 0), (0, Pq * Fq - d_up))).reshape(
+            Sg, Cq, Pq, Fq),
+        mask=(rng.random((Sg, Cq, Pq)) > 0.2).astype(np.float32),
+        w=cnt / cnt.sum(-1, keepdims=True),
+        suff=(rng.random((Sg, Cq)) > 0.3).astype(np.float32),
+        lr=rng.uniform(0.1, 0.3, Sg).astype(np.float32),
+        ef=rng.normal(0.0, 0.01, (Sg, Cq, d_up)).astype(np.float32)).items()}
+    ef = t["ef"] if use_ef else None
+
+    def plain(sl, lr):
+        q = t_ops.debias_client_scale(t["w"][sl], mode="group_rate",
+                                      sufficient=t["suff"][sl], loss_rate=lr)
+        wd = torch.clamp(t["w"][sl].sum(-1), min=DENOM_EPS)
+        x = t["xp"][sl]
+        efp = None if ef is None else torch.nn.functional.pad(
+            ef[sl], (0, Pq * Fq - d_up)).reshape(x.shape)
+        return uplink_ref(x, t["mask"][sl], q, wd, ef=efp, want_ssq=True,
+                          per_coord=False)
+
+    def check(out, ref, lead):
+        agg, ef_rows, ssq = out
+        r_agg, r_ef, r_ssq = ref
+        torch.testing.assert_close(agg, r_agg.reshape(*lead, -1)[..., :d_up],
+                                   rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(ssq, r_ssq, rtol=1e-5, atol=0.0)
+        if use_ef:
+            assert torch.equal(ef_rows, r_ef.reshape(*lead, Cq, -1)
+                               [..., :d_up])
+
+    before = (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES)
+    out = t_ops.uplink_round(
+        t["xp"][0], t["mask"][0], t["w"][0], mode="group_rate", d_up=d_up,
+        ef_rows=None if ef is None else ef[0], sufficient=t["suff"][0],
+        loss_rate=t["lr"][0], want_ssq=True)
+    torch.cuda.synchronize()
+    assert (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    check(out, plain(0, t["lr"][0]), ())
+    out = t_ops.uplink_round_scenarios(
+        t["xp"], t["mask"], t["w"], mode="group_rate", d_up=d_up,
+        ef_rows=ef, sufficient=t["suff"], loss_rate=t["lr"], want_ssq=True)
+    torch.cuda.synchronize()
+    assert (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    check(out, plain(slice(None), t["lr"][:, None]), (Sg,))
+
+
+@pytest.mark.cuda
+def test_cuda_traced_selection_grid_matches_cpu(dev):
+    """Every selection policy x loss {0.1, 0.3}, traced, on the GE
+    channel: a round on the card is one batched uplink launch and one
+    mask launch; the first round from the same seeds and a second from
+    the CPU's state (the scores then read every memory) give the CPU's
+    cohorts and channel states, params rtol 1e-4 / atol 1e-5."""
+    from repro_torch.core.selection import POLICIES, SelectionConfig
+    data = generate_synthetic(np.random.default_rng(0), n_clients=20,
+                              alpha=0.5, beta=0.5)
+    nets = sample_networks(np.random.default_rng(2026), 20)
+    base = FLConfig(algo="fedavg", n_rounds=2, clients_per_round=8,
+                    local_steps=2, batch_size=8, eval_every=100,
+                    tra=TRAConfig(enabled=True, debias="group_rate"),
+                    netsim=NetSimConfig(channel="gilbert_elliott"))
+    cfgs = [dataclasses.replace(
+        base, sel=SelectionConfig(policy=p, traced=True, temperature=0.5),
+        tra=dataclasses.replace(base.tra, loss_rate=r))
+        for p in POLICIES for r in (0.1, 0.3)]
+    engs = {k: SweepEngine.from_configs(cfgs, data, nets, device=d)
+            for k, d in (("card", dev), ("cpu", "cpu"))}
+    before = (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES)
+    card, lg = engs["card"].run_block(engs["card"].init_states(), 0, 1)
+    torch.cuda.synchronize()
+    assert (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES) == \
+        (before[0], before[1] + 1, before[2] + 1)
+    cpu, lc = engs["cpu"].run_block(engs["cpu"].init_states(), 0, 1)
+    np.testing.assert_array_equal(lg["ids"], lc["ids"])
+    np.testing.assert_array_equal(card.net.channel.cpu(), cpu.net.channel)
+    moved = type(cpu)(*(
+        {k: v.to(dev) for k, v in f.items()} if isinstance(f, dict)
+        else type(f)(*(x.to(dev) for x in f)) if isinstance(f, tuple)
+        else f.to(dev) for f in cpu))
+    card, lg = engs["card"].run_block(moved, 1, 1)
+    cpu, lc = engs["cpu"].run_block(cpu, 1, 1)
+    np.testing.assert_array_equal(lg["ids"], lc["ids"])
+    for k in cpu.params:
+        np.testing.assert_allclose(card.params[k].cpu(), cpu.params[k],
+                                   rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card.gnorm_mem.cpu(), cpu.gnorm_mem,
+                               rtol=1e-5, atol=1e-6)

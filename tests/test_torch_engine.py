@@ -28,6 +28,7 @@ from repro.network.trace import sample_networks as j_sample_networks
 from repro_torch import prng
 from repro_torch.convert import ef_mem_from_numpy, params_from_jax
 from repro_torch.core import selection as t_sel
+from repro_torch.core.engine import RoundScanEngine
 from repro_torch.core.selection import SelectionConfig
 from repro_torch.core.server import FederatedServer as TServer
 from repro_torch.core.server import FLConfig as TConfig
@@ -167,9 +168,6 @@ def test_select_from_uniforms_matches_reference():
             t = t_sel.select_from_uniforms(torch.from_numpy(u), None,
                                            torch.from_numpy(elig), k)
             np.testing.assert_array_equal(t.numpy(), j)
-    with pytest.raises(NotImplementedError):
-        t_sel.select_from_uniforms(torch.from_numpy(u), torch.zeros(n),
-                                   torch.from_numpy(elig), 1)
 
 
 def _port_server(data, nets, **kw):
@@ -208,13 +206,23 @@ def test_default_device_is_the_card(small, monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(sel=SelectionConfig(policy="gradient_norm")),
+    dict(sel=SelectionConfig(policy="reputation_aware")),
     dict(sel=SelectionConfig(traced=True))])
 def test_unported_configs_raise(small, change):
+    """The reference's refusals of a score without its source:
+    reputation_aware without the fault model, and the traced policy
+    family (which holds the bandwidth score) without the trace draw,
+    which the server always passes."""
     _, _, data, nets = small
     cfg = dataclasses.replace(TConfig(n_rounds=1), **change)
-    with pytest.raises(NotImplementedError):
+    if cfg.sel.traced:
+        with pytest.raises(ValueError, match="upload_mbps"):
+            RoundScanEngine(cfg, data, np.ones(N_CLIENTS),
+                            np.ones(N_CLIENTS, bool), device="cpu")
         TServer(cfg, data, nets, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="reputation_aware"):
+            TServer(cfg, data, nets, device="cpu")
 
 
 def test_convert_round_trip():

@@ -428,11 +428,12 @@ def test_ge_bw_deadline_rounds_match_reference(inputs, algo, channel):
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(netsim=TNetSim(channel="gilbert_elliott"),
-          sel=SelectionConfig(policy="netsim_state")), NotImplementedError),
-    (dict(netsim=TNetSim(deadline=True),
-          sel=SelectionConfig(policy="staleness_aware")),
-     NotImplementedError),
+    # the selection scores need their netsim model: the GE channel's
+    # state, the deadline's lateness
+    (dict(netsim=TNetSim(bw_ar1=True),
+          sel=SelectionConfig(policy="netsim_state")), ValueError),
+    (dict(netsim=TNetSim(channel="gilbert_elliott", bw_ar1=True),
+          sel=SelectionConfig(policy="staleness_aware")), ValueError),
     (dict(netsim=TNetSim(channel="gilbert_elliott"),
           tra=TTRA(enabled=False)), ValueError)])
 def test_unported_and_refused_netsim_configs(inputs, change, error):

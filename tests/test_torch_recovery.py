@@ -712,14 +712,19 @@ def test_recovery_grid_cells_equal_single_runs(inputs):
      ValueError),
     (dict(lossbudget=dict(enabled=True)), "traced", ValueError),
     (dict(lossbudget=dict(enabled=True), recovery=dict(traced=True)), None,
-     NotImplementedError)])
+     None)])
 def test_refused_configs(inputs, cfg_kw, match, error):
     """tests/test_recovery.py's refusals; with the controller on, the
-    recovery_pressure policy is refused as not ported."""
+    recovery_pressure policy is accepted and runs a round."""
     cfg = _cfg(**cfg_kw)
-    if error is NotImplementedError:
+    if error is None:
         cfg = dataclasses.replace(
             cfg, sel=SelectionConfig(policy="recovery_pressure"))
+        srv = TServer(cfg, inputs["tdata"], inputs["tnets"], device="cpu")
+        log = srv.run_round(0)
+        assert np.isfinite(log.train_loss)
+        assert srv._state.bud_level.shape == (N_CLIENTS,)
+        return
     with pytest.raises(error, match=match):
         TServer(cfg, inputs["tdata"], inputs["tnets"], device="cpu")
 
