@@ -13,8 +13,9 @@ as one scenario-batched sweep, the corruption-tolerance grid of fault
 rate x defense, the full-duplex recovery grid of recovery policy x
 loss rate, the protocol layer's host-loop round, greedy serving of
 qwen1.5-4b and starcoder2-15b at full width, the paper's pFedMe,
-Per-FedAvg, AFL and SCAFFOLD cells, and the selection-policy x loss-rate
-grid with the paper's bias headline) through the kernels,
+Per-FedAvg, AFL and SCAFFOLD cells, the selection-policy x loss-rate
+grid with the paper's bias headline, and the sync / semi_sync / async
+server-mode grid with checkpoint/resume) through the kernels,
 compares the card's runs with the CPU's, times the kernels, and ends
 with a one-line JSON verdict. Any failed check exits non-zero; with no card it exits
 non-zero at once and prints no result.
@@ -200,9 +201,39 @@ Phases:
                 each round from the CPU's state with equal cohorts,
                 quarantine counts, arrivals and lateness, reputation and
                 controller memories, params and the norm, loss and EF
-                memories at the parity tolerances; phase 8 profiles a
+                memories at the parity tolerances; among them
+                gradient_norm with NaN failures and the screen off, whose
+                NaN norms must sit at the same clients on both and whose
+                free-running cohorts must stay equal; phase 8 profiles a
                 traced grid round, a gradient_norm round and a
                 staleness_aware round
+ 13. async      (runs before 8) examples/async_grid_torch.py's grid (sync
+                / semi_sync / async x loss {0.1, 0.3}, traced, FedAvg with
+                EF, TRA, GE burst 8, a 0.1 s deadline, K = 16, alpha 0.5,
+                grace 0.2 s, N=20, C=8) for 40 rounds through run_grid,
+                the counts set to 0 just before and read just after (one
+                uplink_fused_batched and one netsim_mask a round), each
+                cell's slow-quartile arrival mass, the reference's
+                headline reading (sync gives the never-on-time clients no
+                mass, async at least three of them some); each traced cell
+                against its static server on the card, 5 rounds from the
+                grid's state (cohorts, arrival bits, due and tau equal,
+                params rtol 1e-6 / atol 1e-6); the grid on the card
+                against the CPU, 5 rounds, each from the CPU's state (the
+                parity runs at 10 local steps, as the other phases');
+                through FederatedServer for 40 rounds each, the counts
+                set to 0 just before and read just after, and then 5
+                rounds against the CPU from its state: async with
+                staleness_aware and the AR(1) walk (one uplink_fused and
+                one netsim_mask a round), async with ARQ under the
+                deadline (and one fec_recover), async with NaN failures,
+                sign flips and echo replays behind the screen and the clip
+                (one robust_agg instead of the uplink); the checkpoint
+                round-trip on the card (2 rounds, save, load, 2 more,
+                bitwise 4 uninterrupted, live buffer entries at the
+                boundary); phase 8 profiles a traced grid round, the
+                same cells with the sync server alone, and a round of
+                each async case
 """
 from __future__ import annotations
 
@@ -214,6 +245,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -224,6 +256,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.checkpoint import (load_checkpoint,  # noqa: E402
+                                    save_checkpoint)
+from repro_torch.core.async_agg import (EMPTY_DUE,  # noqa: E402
+                                        AsyncConfig)
 from repro_torch.core import client_updates as cu  # noqa: E402
 from repro_torch.core import protocol  # noqa: E402
 from repro_torch.core.lossbudget import LossBudgetConfig  # noqa: E402
@@ -272,6 +308,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import decode as decode_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.netsim.config import NetSimConfig  # noqa: E402
+from repro_torch.netsim.delivery import round_upload_seconds  # noqa: E402
 from repro_torch.netsim.faults import (CLIP_OFF, DefenseConfig,  # noqa: E402
                                        FaultConfig)
 from repro_torch.netsim.recovery import (RECOVERY_POLICIES,  # noqa: E402
@@ -289,6 +326,8 @@ import _torch_wide_cases as wide  # noqa: E402
 # the traced selection grid, the example's
 sys.path.insert(1, os.path.join(ROOT, "examples"))
 import selection_grid_torch as sel_example  # noqa: E402
+# the traced server-mode grid, the example's
+import async_grid_torch as async_example  # noqa: E402
 
 # H100 SXM HBM3 rate (NVIDIA data sheet); the byte bound divides by it
 HBM_BYTES_PER_S = 3.35e12
@@ -382,6 +421,10 @@ ALGO_ROUNDS = 40                # the Fig. 9, Fig. 5 and `beyond` cells
 SEL_ROUNDS = 60                 # the traced selection grid's rounds
 BIAS_N, BIAS_ROUNDS = 40, 40    # tests/test_selection_bias.py's setup
 SEL_DEADLINE_S = 0.1            # the staleness cases' upload deadline
+ASYNC_ROUNDS = 40               # the traced server-mode grid's rounds
+# local steps of the async parity runs, as the other phases' parity runs
+# take: at the grid's 20, one cell of one round parts at a ReLU kink
+PARITY_STEPS = 10
 
 
 def fail(msg: str) -> None:
@@ -2902,6 +2945,7 @@ def check_bias_headline(card):
 
 
 GE_NET = dict(channel="gilbert_elliott", burst_len=4.0)
+NAN_CASE = "gradient_norm, NaN failures, screen off"
 DEADLINE_NET = dict(bw_ar1=True, bw_rho=0.8, deadline=True,
                     deadline_s=SEL_DEADLINE_S)
 # label, selection, other FLConfig fields; each with the model its
@@ -2924,6 +2968,10 @@ SEL_CASES = (
           lossbudget=LossBudgetConfig(enabled=True, budget=0.05, ema=0.3))),
     ("traced (gradient_norm)", dict(policy="gradient_norm", traced=True),
      dict(netsim=NetSimConfig(**GE_NET, **DEADLINE_NET))),
+    # failed clients upload NaN with the screen off: NaN norms and then
+    # a NaN model, whose NaN scores the card makes with its own sign bit
+    (NAN_CASE, dict(policy="gradient_norm"),
+     dict(faults=FaultConfig(enabled=True, fail_rate=0.3))),
 )
 # the score policies whose scores read no training state: their cohorts
 # stay equal free-running too
@@ -2964,7 +3012,7 @@ def check_selection_card_vs_cpu():
                 free[dev], logs[dev] = s.engine.run_block(free[dev], t, 1)
             if not np.array_equal(logs["cuda"]["ids"], logs["cpu"]["ids"]):
                 if sel["policy"] in STATELESS_SCORES \
-                        or sel["policy"] == "uniform":
+                        or sel["policy"] == "uniform" or label == NAN_CASE:
                     fail(f"{label}: free-running cohorts differ between "
                          f"cuda and cpu at round {t}")
                 parted.append(t)
@@ -2994,6 +3042,17 @@ def check_selection_card_vs_cpu():
                 elif not np.array_equal(a, b):
                     fail(f"{label} round {t}: {name} differs between cuda "
                          f"and cpu from the cpu state")
+        if label == NAN_CASE:
+            n_nan = {dev: int(torch.isnan(st.gnorm_mem).sum())
+                     for dev, st in free.items()}
+            if n_nan["cuda"] == 0 or not torch.equal(
+                    torch.isnan(free["cuda"].gnorm_mem).cpu(),
+                    torch.isnan(free["cpu"].gnorm_mem)):
+                fail(f"{label}: NaN norms {n_nan} do not match")
+            print(f"[parity] {label}: {n_nan['cuda']} NaN norms in the "
+                  f"memory on cuda and on cpu at the same clients, "
+                  f"free-running cohorts equal every round (NaN params "
+                  f"compared by position)", flush=True)
         mem_sizes = {n: getattr(forced, n).numel() for n in SEL_MEMS[:4]}
         print(f"[parity] {label}, cuda vs cpu, {PARITY_ROUNDS} rounds: "
               f"round by round from the cpu state cohorts and carries "
@@ -3048,6 +3107,356 @@ def run_selection_phase(card):
     check_selection_card_vs_cpu()
     print(f"[select] the selection phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+def cell_state(states, i):
+    """Scenario ``i`` of a stacked state."""
+    def pick(v):
+        if isinstance(v, dict):
+            return {k: t[i] for k, t in v.items()}
+        if isinstance(v, tuple):
+            return type(v)(*(t[i] for t in v))
+        return v[i]
+
+    return type(states)(*(pick(v) for v in states))
+
+
+def late_clients(cfg, data, nets):
+    """The clients whose upload can never meet the deadline (static
+    speeds), as the reference's headline reads them."""
+    D = sum(v.numel() for v in mlp_init(prng.PRNGKey(0)).values())
+    P = packets.n_packets(D, cfg.tra.packet_floats)
+    secs = round_upload_seconds(
+        P, cfg.tra.packet_floats,
+        torch.tensor(nets.upload_mbps, dtype=torch.float32),
+        cfg.tra.loss_rate, torch.tensor(
+            sufficiency_report(nets, cfg.tra.threshold_mbps), dtype=torch.bool))
+    return (secs > cfg.netsim.deadline_s).numpy()
+
+
+def run_async_grid(card):
+    """The example's traced grid (sync / semi_sync / async x loss {0.1,
+    0.3}, 6 cells) through run_grid for ASYNC_ROUNDS rounds, the counts
+    set to 0 just before and read just after: one uplink_fused_batched
+    and one netsim_mask a round. Then the same grid through the
+    SweepEngine for its arrival weights: the slow quartile's arrival
+    mass per cell, and the reference's headline reading (sync gives the
+    chronically late clients none, async at least three of them some).
+    Returns the counts and cell-rounds/s."""
+    data, nets = async_example.inputs()
+    run_grid(async_example.grid(2), data, nets)      # warm-up, not counted
+    torch.cuda.synchronize()
+    cfgs = async_example.grid(ASYNC_ROUNDS)
+    zero_counts()
+    t0 = time.perf_counter()
+    hists = run_grid(cfgs, data, nets)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    check_histories("async grid", hists, ASYNC_ROUNDS, len(cfgs))
+    want = expect(uplink_fused_batched=ASYNC_ROUNDS, netsim_mask=ASYNC_ROUNDS)
+    if got != want:
+        fail(f"async grid launches {got}, expected {want}")
+    rate = len(cfgs) * ASYNC_ROUNDS / secs
+    print(f"[async] traced server-mode grid, {len(cfgs)} cells x "
+          f"{ASYNC_ROUNDS} rounds through run_grid: {secs:.3f} s, "
+          f"{rate:.1f} cell-rounds/s, launches {got} (one batched uplink "
+          f"and one mask a round) | {card}", flush=True)
+    _, logs = SweepEngine.from_configs(cfgs, data, nets).run()
+    slow = async_example.slow_quartile(nets.upload_mbps)
+    late = late_clients(cfgs[0], data, nets)
+    masses = {}
+    for i, (cfg, hist) in enumerate(zip(cfgs, hists)):
+        mass = async_example.arrival_mass(logs["ids"][i], logs["arrival"][i],
+                                          len(nets.upload_mbps))
+        masses[cfg.srv.mode, cfg.tra.loss_rate] = mass
+        print(f"[async]   {cfg.srv.mode:9s} loss {cfg.tra.loss_rate:.1f}: "
+              f"sample acc {hist[-1].report.sample_average * 100:5.1f}%, "
+              f"slow-quartile arrival mass {mass[slow].sum():7.3f} "
+              f"(share {mass[slow].sum() / mass.sum():.3f}), never-on-time "
+              f"clients' mass {mass[late].sum():7.3f}", flush=True)
+    for rate in async_example.LOSS_RATES:
+        if masses["sync", rate][late].sum() != 0.0 \
+                or (masses["async", rate][late] > 0).sum() < 3:
+            fail(f"async grid at loss {rate}: the late clients' arrival "
+                 f"mass is {masses['sync', rate][late]} under sync and "
+                 f"{masses['async', rate][late]} under async")
+    return got, rate
+
+
+def parity_grid():
+    """The example's traced grid for PARITY_ROUNDS rounds at
+    PARITY_STEPS local steps."""
+    return [dataclasses.replace(c, local_steps=PARITY_STEPS)
+            for c in async_example.grid(PARITY_ROUNDS)]
+
+
+def check_async_cells_vs_static():
+    """Each traced cell against its static single-mode server on the
+    card (``parity_grid``), PARITY_ROUNDS rounds, each from the grid's
+    state:
+    cohorts, arrival bits, due and tau bitwise, params and losses rtol
+    1e-6, params atol 1e-6 (the sweep trains the cells in one batched
+    GEMM, whose order-1 terms round an ulp, 1.2e-7, apart from the single
+    GEMM's on the card; the CPU tests hold atol 1e-7)."""
+    data, nets = async_example.inputs()
+    cfgs = parity_grid()
+    eng = SweepEngine.from_configs(cfgs, data, nets)
+    states = eng.init_states()
+    statics = [FederatedServer(dataclasses.replace(
+        c, srv=dataclasses.replace(c.srv, traced=False)), data, nets,
+        device="cuda") for c in cfgs]
+    worst = 0.0
+    for t in range(PARITY_ROUNDS):
+        nxt, lg = eng.run_block(states, t, 1)
+        for i, (c, srv) in enumerate(zip(cfgs, statics)):
+            st = cell_state(states, i)
+            if c.srv.mode != "async":
+                st = st._replace(buf=srv._state.buf)
+            s1, l1 = srv.engine.run_block(st, t, 1)
+            cell = cell_state(nxt, i)
+            label = f"async grid cell {c.srv.mode} {c.tra.loss_rate} round {t}"
+            if not np.array_equal(l1["ids"], lg["ids"][i]):
+                fail(f"{label}: cohorts differ from the static run")
+            for bit in (0.0, 1.0):
+                if not np.array_equal(l1["arrival"] == bit,
+                                      lg["arrival"][i] == bit):
+                    fail(f"{label}: arrival bits differ from the static run")
+            if c.srv.mode == "async" and not (
+                    torch.equal(s1.buf.due, cell.buf.due)
+                    and torch.equal(s1.buf.tau, cell.buf.tau)):
+                fail(f"{label}: the buffer's due or tau differ from the "
+                     f"static run")
+            va, vb = grid_params(cell_state_params(s1), 1), \
+                grid_params(cell_state_params(cell), 1)
+            np.testing.assert_allclose(va, vb, rtol=1e-6, atol=1e-6,
+                                       err_msg=label)
+            np.testing.assert_allclose(l1["loss"], lg["loss"][i], rtol=1e-6,
+                                       err_msg=label)
+            worst = max(worst, float(np.abs(va - vb).max()))
+        states = nxt
+    print(f"[async] each traced cell against its static server on cuda, "
+          f"{PARITY_ROUNDS} rounds from the grid's state: cohorts, arrival "
+          f"bits, due and tau equal, max |param diff| {worst:.3e}",
+          flush=True)
+
+
+def cell_state_params(state):
+    """A single state with its params given a leading axis of 1."""
+    return state._replace(params={k: v[None] for k, v in
+                                  state.params.items()})
+
+
+def check_async_grid_card_vs_cpu():
+    """The traced grid (``parity_grid``) for PARITY_ROUNDS rounds on the
+    card and on the CPU: free-running cohorts and channel states equal
+    (the uniforms
+    decide them); round by round from the CPU's state, cohorts,
+    arrival bits, due and tau equal, arrival weights rtol 1e-6, params
+    and losses at the parity tolerances."""
+    data, nets = async_example.inputs()
+    cfgs = parity_grid()
+    engs = {dev: SweepEngine.from_configs(cfgs, data, nets, device=dev)
+            for dev in ("cuda", "cpu")}
+    free = {dev: e.init_states() for dev, e in engs.items()}
+    forced = free["cpu"]
+    worst = 0.0
+    for t in range(PARITY_ROUNDS):
+        logs = {}
+        for dev, eng in engs.items():
+            free[dev], logs[dev] = eng.run_block(free[dev], t, 1)
+        if not np.array_equal(logs["cuda"]["ids"], logs["cpu"]["ids"]) \
+                or not torch.equal(free["cuda"].net.channel.cpu(),
+                                   free["cpu"].net.channel):
+            fail(f"async grid: free-running cohorts or channel states "
+                 f"differ between cuda and cpu at round {t}")
+        on_card, lg = engs["cuda"].run_block(to_device(forced, "cuda"), t, 1)
+        forced, lc = engs["cpu"].run_block(forced, t, 1)
+        check_async_round(f"async grid round {t}", on_card, lg, forced, lc)
+        vg, vc = grid_params(on_card, len(cfgs)), grid_params(forced,
+                                                                len(cfgs))
+        np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5)
+        worst = max(worst, float(np.abs(vg - vc).max()))
+    print(f"[parity] async grid, cuda vs cpu, {PARITY_ROUNDS} rounds x "
+          f"{len(cfgs)} cells: free-running cohorts and channel states "
+          f"equal; round by round from the cpu state cohorts, arrival "
+          f"bits, due and tau equal, max |param diff| {worst:.3e}",
+          flush=True)
+
+
+def check_async_round(label, card_state, lg, cpu_state, lc):
+    """One round's logs and buffer on the card against the CPU's from the
+    same state: cohorts, quarantine counts, arrival bits, due and tau
+    equal; arrival weights rtol 1e-6 (torch.pow on the card may round
+    the discount one ulp away); losses, the buffer's vectors and weights
+    at the parity tolerances."""
+    for name in ("ids", "quarantine"):
+        if name in lc and not np.array_equal(lg[name], lc[name]):
+            fail(f"{label}: {name} differ between cuda and cpu")
+    for bit in (0.0, 1.0):
+        if not np.array_equal(lg["arrival"] == bit, lc["arrival"] == bit):
+            fail(f"{label}: arrival bits differ between cuda and cpu")
+    np.testing.assert_allclose(lg["arrival"], lc["arrival"], rtol=1e-6,
+                               err_msg=label)
+    np.testing.assert_allclose(lg["loss"], lc["loss"], rtol=1e-5,
+                               err_msg=label)
+    for name in ("due", "tau"):
+        if not torch.equal(getattr(card_state.buf, name).cpu(),
+                           getattr(cpu_state.buf, name)):
+            fail(f"{label}: buf.{name} differs between cuda and cpu")
+    for name in ("vec", "w"):
+        np.testing.assert_allclose(
+            getattr(card_state.buf, name).cpu().numpy(),
+            getattr(cpu_state.buf, name).numpy(), rtol=1e-4, atol=1e-5,
+            err_msg=f"{label} buf.{name}")
+
+
+# label, FLConfig fields over the example's async cell at loss 0.3, the
+# launches a round on the card
+ASYNC_CASES = (
+    ("staleness_aware + bw_ar1",
+     dict(sel=SelectionConfig(policy="staleness_aware"),
+          netsim=NetSimConfig(channel="gilbert_elliott", burst_len=8.0,
+                              deadline=True, deadline_s=0.1, bw_ar1=True,
+                              bw_rho=0.8)),
+     dict(uplink_fused=1, netsim_mask=1)),
+    ("ARQ under the deadline",
+     dict(recovery=RecoveryConfig(policy="arq", retries=2)),
+     dict(uplink_fused=1, netsim_mask=1, fec_recover=1)),
+    ("faults (NaN, sign flips, echoes; screen + clip)",
+     dict(faults=FaultConfig(enabled=True, fail_rate=0.2, flip_rate=0.2,
+                             echo_rate=0.2),
+          defense=DefenseConfig(screen=True, clip=True, clip_norm=2.0),
+          seed=4),
+     dict(robust_agg=1, netsim_mask=1)),
+)
+
+
+def async_case_cfg(label, n_rounds):
+    _, kw, _ = next(c for c in ASYNC_CASES if c[0] == label)
+    cell = async_example.grid(n_rounds)[-1]          # async, loss 0.3
+    return dataclasses.replace(
+        cell, srv=dataclasses.replace(cell.srv, traced=False), **kw)
+
+
+def run_async_case(label, card):
+    """An ASYNC_CASES run through FederatedServer for ASYNC_ROUNDS rounds
+    after a 2-round warm-up, the counts set to 0 just before and read
+    just after; then PARITY_ROUNDS rounds at PARITY_STEPS local steps on
+    the card against the CPU, each from the CPU's state
+    (``check_async_round``, params at the parity tolerances). Returns
+    rounds/s."""
+    data, nets = async_example.inputs()
+    per_round = next(c for c in ASYNC_CASES if c[0] == label)[2]
+    FederatedServer(async_case_cfg(label, 2), data, nets, device="cuda").run()
+    server = FederatedServer(async_case_cfg(label, ASYNC_ROUNDS), data, nets,
+                             device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = server.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    want = expect(**{k: v * ASYNC_ROUNDS for k, v in per_round.items()})
+    if got != want:
+        fail(f"{label}: launches {got}, expected {want}")
+    losses = [h.train_loss for h in hist]
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label}: bad loss trajectory {losses}")
+    assert_finite_tree(server.params, label)
+    if not torch.isfinite(server._state.buf.vec).all():
+        fail(f"{label}: a non-finite buffered contribution")
+    rep = server.evaluate()
+    cfg = dataclasses.replace(async_case_cfg(label, PARITY_ROUNDS),
+                              local_steps=PARITY_STEPS)
+    srv = {dev: FederatedServer(cfg, data, nets, device=dev)
+           for dev in ("cuda", "cpu")}
+    forced = srv["cpu"]._state
+    worst = 0.0
+    seen = {"late": 0, "popped": 0, "refused": 0}
+    for t in range(PARITY_ROUNDS):
+        seen["popped"] += int((forced.buf.due <= t).any())
+        on_card, lg = srv["cuda"].engine.run_block(to_device(forced, "cuda"),
+                                                   t, 1)
+        forced, lc = srv["cpu"].engine.run_block(forced, t, 1)
+        check_async_round(f"{label} round {t}", on_card, lg, forced, lc)
+        if not torch.equal(on_card.stale_mem.cpu(), forced.stale_mem):
+            fail(f"{label} round {t}: the lateness memory differs")
+        vg, vc = grid_params(cell_state_params(on_card), 1), \
+            grid_params(cell_state_params(forced), 1)
+        np.testing.assert_allclose(vg, vc, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"{label} round {t}")
+        worst = max(worst, float(np.abs(vg - vc).max()))
+        late = (lc["arrival"] > 0) & (lc["arrival"] < 1)
+        seen["late"] += int(late.sum())
+        if "quarantine" in lc:
+            seen["refused"] += int((late & (lc["quarantine"] > 0)).sum())
+    print(f"[async] {label}: acc={rep.average * 100:5.1f}% loss "
+          f"{losses[0]:.4f}->{losses[-1]:.4f} {ASYNC_ROUNDS / secs:.1f} "
+          f"rounds/s, launches {got} | {card}", flush=True)
+    print(f"[parity] {label}, cuda vs cpu, {PARITY_ROUNDS} rounds from the "
+          f"cpu state: cohorts, arrival bits, due, tau and the lateness "
+          f"memory equal, max |param diff| {worst:.3e}; late uploads "
+          f"{seen['late']}, rounds popping the buffer {seen['popped']}, "
+          f"quarantined late uploads refused {seen['refused']}", flush=True)
+    if not seen["late"] or not seen["popped"]:
+        fail(f"{label}: no late upload buffered or none popped: {seen}")
+    return ASYNC_ROUNDS / secs
+
+
+def check_checkpoint_on_card():
+    """The checkpoint round-trip on the card: 2 rounds of the
+    staleness_aware + bw_ar1 case, save, load, 2 more, bitwise the
+    uninterrupted 4 rounds, with live buffer entries at the boundary;
+    the restored state on the card."""
+    data, nets = async_example.inputs()
+    server = FederatedServer(async_case_cfg(ASYNC_CASES[0][0], 4), data,
+                             nets, device="cuda")
+    eng = server.engine
+    mid, _ = eng.run_block(server._state, 0, 2)
+    live = int((mid.buf.due < EMPTY_DUE).sum())
+    if not live:
+        fail("checkpoint: no live buffer entry at the boundary")
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(os.path.join(d, "ck"), mid, step=2)
+        restored, step = load_checkpoint(path, mid)
+    if step != 2 or restored.buf.vec.device.type != "cuda":
+        fail(f"checkpoint: step {step}, device {restored.buf.vec.device}")
+    full, lf = eng.run_block(mid, 2, 2)
+    resumed, lr = eng.run_block(restored, 2, 2)
+    a, b = (torch.cat([t.reshape(-1).double() for t in
+                       (*s.params.values(), s.ef_mem, s.net.channel,
+                        s.net.logbw, s.stale_mem, *s.buf)]) for s in
+            (full, resumed))
+    if not torch.equal(a, b) or any(not np.array_equal(lf[k], lr[k])
+                                    for k in lf):
+        fail("checkpoint: the resumed rounds differ from the uninterrupted "
+             "ones")
+    print(f"[async] checkpoint round-trip on cuda: 2 rounds, save, load, 2 "
+          f"more equal bit for bit to 4 uninterrupted rounds ({live} live "
+          f"buffer entries at the boundary)", flush=True)
+
+
+def run_async_phase(card):
+    """Phase 13: the traced server-mode grid through run_grid, its cells
+    against their static servers and the card against the CPU; the
+    single-server async cases (staleness_aware + bw_ar1, ARQ under the
+    deadline, faults) with their launches and the card against the CPU;
+    the checkpoint round-trip on the card. Returns the grid's counts."""
+    t_phase = time.perf_counter()
+    got, _ = run_async_grid(card)
+    check_async_cells_vs_static()
+    check_async_grid_card_vs_cpu()
+    for label, _, _ in ASYNC_CASES:
+        run_async_case(label, card)
+    check_checkpoint_on_card()
+    print(f"[async] the async phase took {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
     return got
 
 
@@ -3565,6 +3974,48 @@ def profile_selection_grid(card, n=5):
                   prof, wall_ms, n)
 
 
+def profile_async_grid(card, n=5, traced=True):
+    """Device busy share and top kernels over ``n`` rounds of the traced
+    server-mode grid (6 cells), or with ``traced=False`` of the same
+    cells with the server at its default (sync, no buffer built in): the
+    baseline the traced server adds to."""
+    data, nets = async_example.inputs()
+    cfgs = async_example.grid(n + 2)
+    if not traced:
+        cfgs = [dataclasses.replace(c, srv=AsyncConfig()) for c in cfgs]
+    eng = SweepEngine.from_configs(cfgs, data, nets)
+    st = eng.init_states()
+    st, _ = eng.run_block(st, 0, 2)                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = eng.run_block(st, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    label = "traced server-mode" if traced else "sync-server (srv default)"
+    print_profile(f"{n} {label} grid rounds (6 cells) | {card}", prof,
+                  wall_ms, n)
+
+
+def profile_async_case(card, label, n=5):
+    """Device busy share and top kernels over ``n`` rounds of a phase-13
+    async case through FederatedServer."""
+    data, nets = async_example.inputs()
+    server = FederatedServer(async_case_cfg(label, n + 2), data, nets,
+                             device="cuda")
+    state = server.engine.init_state(server.params)
+    state, _ = server.engine.run_block(state, 0, 2)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = server.engine.run_block(state, 2, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"{n} async rounds, {label} | {card}", prof, wall_ms, n)
+
+
 def profile_policy_rounds(card, label, n=5):
     """Device busy share and top kernels over ``n`` rounds of a phase-12
     policy through FederatedServer (quickstart inputs, TRA 10%)."""
@@ -3643,6 +4094,7 @@ def main() -> int:
     fd_launches, fd_err, fd_t = run_serve_phase(card)
     run_algo_phase(card)
     run_selection_phase(card)
+    run_async_phase(card)
     main_t = time_uplink(MAIN_SHAPE, card)
     time_uplink(wide.SCAFFOLD_SHAPE, card)
     time_uplink(TILE_SHAPE, card)
@@ -3679,6 +4131,10 @@ def main() -> int:
     profile_selection_grid(card)
     for label in ("gradient_norm", "staleness_aware"):
         profile_policy_rounds(card, label)
+    profile_async_grid(card)
+    profile_async_grid(card, traced=False)
+    for label, _, _ in ASYNC_CASES:
+        profile_async_case(card, label)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [

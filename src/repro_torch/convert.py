@@ -12,6 +12,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core.async_agg import ArrivalBuffer
 from repro_torch.core.engine import EngineState
 from repro_torch.netsim.state import NetSimState
 
@@ -48,8 +49,8 @@ def engine_state_from_jax(state, device) -> EngineState:
     params, EF memory, AFL weights, simulator state (the downlink chain
     included), the fault model's echo and reputation memories, the
     stale-model buffer, the loss-budget controller's carries, SCAFFOLD's
-    control variates and the selection scores' memories, single or
-    stacked along a scenario axis."""
+    control variates, the selection scores' memories and the async
+    server's arrival buffer, single or stacked along a scenario axis."""
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -62,7 +63,8 @@ def engine_state_from_jax(state, device) -> EngineState:
         stale_model=f32(state.stale_model), bud_level=f32(state.bud_level),
         bud_loss=f32(state.bud_loss), c_global=f32(state.c_global),
         c_i=f32(state.c_i), gnorm_mem=f32(state.gnorm_mem),
-        loss_mem=f32(state.loss_mem), stale_mem=f32(state.stale_mem))
+        loss_mem=f32(state.loss_mem), stale_mem=f32(state.stale_mem),
+        buf=ArrivalBuffer(*(f32(a) for a in state.buf)))
 
 
 def model_params_from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:

@@ -39,16 +39,23 @@ One round is:
                    one-hot or the loss-budget controller's per-client
                    level; then the sufficiency override, the AR(1)
                    bandwidth step for all N
-                   clients and the sync deadline drop (and the rounds
-                   late that ``staleness_aware`` remembers); with faults on,
-                   packet faults (corruption, bit flips) on what is
-                   delivered,
+                   clients and the deadline: under the sync server a miss
+                   drops the whole upload, under semi_sync an upload
+                   landing in the grace window counts this round,
+                   staleness-discounted, and under async a late upload
+                   waits in the arrival buffer (``core/async_agg.py``),
+                   with the mode traced as a one-hot when ``srv.traced``;
+                   with faults on, packet faults (corruption, bit flips)
+                   on what is delivered,
   * TRA uplink   — ONE ``uplink_round`` call: EF re-inject, debias
                    aggregate, new EF rows and the q-FedAvg norms (the
                    CUDA megakernel on the card); with faults on, ONE
                    ``robust_uplink_round`` call instead: the finite
                    screen, norm clip and trimmed mean as gates (the
-                   robust-aggregation kernel on the card),
+                   robust-aggregation kernel on the card); the non-sync
+                   modes fold the arrival weights into the aggregation
+                   weights, and async pops the buffer's due entries into
+                   the aggregate and pushes this round's late uploads,
   * server step  — the weighted mean (FedAvg, Per-FedAvg, and AFL with
                    its mixture weights), pFedMe's beta mix, q-FedAvg's
                    h-normalised step or SCAFFOLD's model and control-
@@ -64,16 +71,18 @@ kernels batch through their ops' vmap rules. Static structure
 (algorithm, debias mode, cohort size, local steps, batch size, TRA
 on/off, error feedback, the netsim model selection, ``faults.enabled``,
 ``defense.trim_k``, the selection policy unless traced, the recovery
-policy unless traced, the FEC group and ``lossbudget.enabled``) stays in
-the closure and must be shared across a sweep.
+policy unless traced, the FEC group, ``lossbudget.enabled``, the server
+mode unless traced and ``srv.buffer_k``) stays in the closure and must
+be shared across a sweep.
 
 This port runs the reference's round with: all six algorithms, all
-eight selection policies (static or traced), the sync server, the iid
-and Gilbert–Elliott channels, the AR(1) bandwidth walk, the deadline,
-the fault model with its defenses, the downlink model, the recovery
-policies and the loss-budget controller. No telemetry. With uniform
-selection, the downlink off, one_shot recovery and the controller off,
-the step is the one of the earlier slices, bit for bit. ``run_block`` is a
+eight selection policies (static or traced), the three server modes
+(static or traced), the iid and Gilbert–Elliott channels, the AR(1)
+bandwidth walk, the deadline, the fault model with its defenses, the
+downlink model, the recovery policies and the loss-budget controller.
+No telemetry. With uniform selection, the sync server, the downlink
+off, one_shot recovery and the controller off, the step is the one of
+the earlier slices, bit for bit. ``run_block`` is a
 Python loop over the same step ``run_single`` runs, so the block and
 per-round paths agree by construction.
 """
@@ -87,12 +96,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.core import async_agg as async_mod
 from repro_torch.core import client_updates as cu
 from repro_torch.core import lossbudget as bud_mod
 from repro_torch.core.mlp import mlp_weighted_loss
 from repro_torch.core import selection as sel_mod
+from repro_torch.core.async_agg import ArrivalBuffer
 from repro_torch.core.tra import flatten_clients, unflatten_like
 from repro_torch.data.synthetic import DeviceDataset, stage_on_device
+from repro_torch.kernels.common import DENOM_EPS
 from repro_torch.kernels.fec_recover import ops as fec_ops
 from repro_torch.kernels.netsim_mask import ops as netsim_ops
 from repro_torch.kernels.robust_agg import ops as robust_ops
@@ -102,8 +114,9 @@ from repro_torch.netsim.bandwidth import logbw_round_step
 from repro_torch.netsim.channel import ge_transition_probs
 from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim import recovery as rec_mod
-from repro_torch.netsim.delivery import (arrival_lateness,
+from repro_torch.netsim.delivery import (MAX_LATENESS, arrival_lateness,
                                          deadline_delivered,
+                                         grace_staleness,
                                          round_upload_seconds)
 from repro_torch.netsim.state import NetSimState, init_net_state
 from repro_torch.network.packets import n_packets
@@ -147,6 +160,11 @@ class EngineState(NamedTuple):
     gnorm_mem: torch.Tensor    # (N,) f32, or (0,)
     loss_mem: torch.Tensor     # (N,) f32, or (0,)
     stale_mem: torch.Tensor    # (N,) f32, or (0,)
+    # the async server's K-slot in-flight upload buffer
+    # (core/async_agg.py): late uploads ride the rounds sorted by their
+    # arrival round and join the round they land in, staleness-
+    # discounted; zero-size unless srv.mode is async or srv.traced
+    buf: ArrivalBuffer
 
 
 class ScenarioCtx(NamedTuple):
@@ -191,6 +209,10 @@ class ScenarioCtx(NamedTuple):
     bud_budget: torch.Tensor  # () f32 realized-loss EMA ceiling
     bud_ema: torch.Tensor    # () f32 EMA coefficient beta
     bud_div: torch.Tensor    # () f32 update-norm divergence gate
+    # server-mode knobs (the mode is static, or this one-hot when traced)
+    srv_mode: torch.Tensor   # (3,) f32 one-hot over async_agg.MODES
+    stale_alpha: torch.Tensor  # () f32 staleness discount exponent
+    grace_s: torch.Tensor    # () f32 semi_sync grace window (seconds)
 
 
 # the ScenarioCtx fields that come from NetSimConfig fields of one name
@@ -204,10 +226,12 @@ CTX_REC_FIELDS = ("rec_policy", "rec_retries", "rec_backoff", "bud_budget",
                   "bud_ema", "bud_div")
 # the ScenarioCtx fields of the selection policy's knobs
 CTX_SEL_FIELDS = ("sel_threshold", "sel_temp", "sel_explore", "sel_policy")
+# the ScenarioCtx fields of the server mode
+CTX_SRV_FIELDS = ("srv_mode", "stale_alpha", "grace_s")
 # every ScenarioCtx field past the data, the masks and the static log
 # speeds: ``scenario_knobs``
 CTX_KNOB_FIELDS = CTX_NETSIM_FIELDS + CTX_FAULT_FIELDS + CTX_REC_FIELDS \
-    + CTX_SEL_FIELDS
+    + CTX_SEL_FIELDS + CTX_SRV_FIELDS
 
 
 def fault_knobs(flt, dfn) -> Dict[str, float]:
@@ -223,14 +247,15 @@ def fault_knobs(flt, dfn) -> Dict[str, float]:
 
 
 def scenario_knobs(cfg, ns=None, flt=None, dfn=None, rec=None, bud=None,
-                   sel=None) -> Dict[str, np.ndarray]:
+                   sel=None, srv=None) -> Dict[str, np.ndarray]:
     """The CTX_KNOB_FIELDS values of one scenario as float32 arrays: its
-    netsim, fault, defense, recovery, loss-budget and selection configs,
-    each defaulting to ``cfg``'s."""
+    netsim, fault, defense, recovery, loss-budget, selection and server
+    configs, each defaulting to ``cfg``'s."""
     ns = cfg.netsim if ns is None else ns
     rec = cfg.recovery if rec is None else rec
     bud = cfg.lossbudget if bud is None else bud
     sel = cfg.sel if sel is None else sel
+    srv = cfg.srv if srv is None else srv
     knobs = {f: getattr(ns, f) for f in CTX_NETSIM_FIELDS}
     knobs.update(fault_knobs(cfg.faults if flt is None else flt,
                              cfg.defense if dfn is None else dfn))
@@ -239,7 +264,9 @@ def scenario_knobs(cfg, ns=None, flt=None, dfn=None, rec=None, bud=None,
                  bud_budget=bud.budget, bud_ema=bud.ema,
                  bud_div=bud.div_gate, sel_threshold=sel.threshold_mbps,
                  sel_temp=sel.temperature, sel_explore=sel.explore,
-                 sel_policy=sel_mod.policy_onehot(sel.policy))
+                 sel_policy=sel_mod.policy_onehot(sel.policy),
+                 srv_mode=async_mod.mode_onehot(srv.mode),
+                 stale_alpha=srv.staleness_alpha, grace_s=srv.grace_s)
     return {f: np.asarray(knobs[f], np.float32) for f in CTX_KNOB_FIELDS}
 
 
@@ -253,6 +280,7 @@ SWEEP_VARYING_NETSIM_FIELDS = ("burst_len", "good_loss", "bad_loss",
 SWEEP_VARYING_SEL_FIELDS = sel_mod.SWEEP_VARYING_SEL_FIELDS
 SWEEP_VARYING_REC_FIELDS = rec_mod.SWEEP_VARYING_REC_FIELDS
 SWEEP_VARYING_BUD_FIELDS = bud_mod.SWEEP_VARYING_BUD_FIELDS
+SWEEP_VARYING_SRV_FIELDS = async_mod.SWEEP_VARYING_SRV_FIELDS
 
 
 def static_signature(cfg):
@@ -269,6 +297,12 @@ def static_signature(cfg):
         # the policy rides ScenarioCtx.sel_policy: traced configs share
         # one step across all eight policies
         sel = dataclasses.replace(sel, policy="uniform")
+    srv = dataclasses.replace(
+        cfg.srv, **{f: 0.0 for f in SWEEP_VARYING_SRV_FIELDS})
+    if srv.traced:
+        # the mode rides ScenarioCtx.srv_mode: traced configs share one
+        # step across all three modes
+        srv = dataclasses.replace(srv, mode="sync")
     flt = dataclasses.replace(
         cfg.faults,
         **{f: 0.0 for f in faults_mod.SWEEP_VARYING_FAULT_FIELDS})
@@ -281,7 +315,7 @@ def static_signature(cfg):
         rec = dataclasses.replace(rec, policy="one_shot")
     bud = dataclasses.replace(
         cfg.lossbudget, **{f: 0.0 for f in SWEEP_VARYING_BUD_FIELDS})
-    return dataclasses.replace(cfg, tra=tra, netsim=ns, sel=sel,
+    return dataclasses.replace(cfg, tra=tra, netsim=ns, sel=sel, srv=srv,
                                faults=flt, defense=dfn, recovery=rec,
                                lossbudget=bud, seed=0, selection="all",
                                eligible_ratio=1.0)
@@ -350,6 +384,19 @@ def validate_round_config(cfg) -> None:
             "controller's escalation state and requires "
             "lossbudget.enabled=True (without the controller there is no "
             "pressure signal)")
+    srv = cfg.srv
+    if (srv.traced or srv.mode != "sync") and not ns.deadline:
+        raise ValueError(
+            "server modes semi_sync/async (and srv.traced, which includes "
+            "them) schedule uploads by arrival time and require "
+            "netsim.deadline=True")
+    if (srv.traced or srv.mode == "async") \
+            and cfg.tra.debias == "per_coord_count":
+        raise ValueError(
+            "the async arrival buffer composes with scalar-denominator "
+            "debias modes only; per_coord_count keeps per-coordinate "
+            "denominators that cannot be re-weighted after the fact (use "
+            "semi_sync, or another debias mode)")
     if ns.channel != "iid" and not cfg.tra.enabled:
         raise ValueError(
             f"netsim channel={ns.channel!r} models lossy TRA uploads "
@@ -434,7 +481,10 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
         c_i=per_client(scaffold, (D,)),
         gnorm_mem=score_mem("gradient_norm"),
         loss_mem=score_mem("loss_aware"),
-        stale_mem=score_mem("staleness_aware"))
+        stale_mem=score_mem("staleness_aware"),
+        buf=async_mod.init_arrival_buffer(cfg.srv.buffer_k, up_dim, dev)
+        if cfg.srv.traced or cfg.srv.mode == "async"
+        else async_mod.empty_arrival_buffer(dev))
 
 
 def make_round_step(cfg, cohort: int):
@@ -496,6 +546,13 @@ def make_round_step(cfg, cohort: int):
     need_loss = traced_sel or policy == "loss_aware"
     need_stale = traced_sel or policy == "staleness_aware"
     need_rep = use_faults and (traced_sel or policy == "reputation_aware")
+    # the server mode: the mode (or "traced") and buffer_k are static;
+    # the staleness exponent and the grace window ride the context.
+    # use_buf builds the arrival buffer in, nonsync the arrival weights
+    traced_srv = cfg.srv.traced
+    srv_mode = cfg.srv.mode
+    use_buf = traced_srv or srv_mode == "async"
+    nonsync = traced_srv or srv_mode != "sync"
 
     def step(ctx: ScenarioCtx, state: EngineState, t: int):
         dd = ctx.data
@@ -684,11 +741,14 @@ def make_round_step(cfg, cohort: int):
         if use_bw:
             # time passes for every client: one AR(1) step on all N
             net_logbw = logbw_round_step(key, net_logbw, ctx.bw_rho)
+        # the loss channel's mask alone: the async buffer stores late
+        # uploads under it
+        loss_mask = pkt_mask
+        a_c = None          # per-client arrival weight on w_agg
         arrival = lateness = None
         if use_dl:
-            # sync deadline: retransmitters push ~P/(1-r) packets, TRA
-            # one-shots push P; a miss drops the whole upload, while its
-            # weight stays in the denominator
+            # arrival times: retransmitters push ~P/(1-r) packets, TRA
+            # one-shots push P
             retransmit = suff.bool() if tra_cfg.enabled \
                 else torch.ones((C,), dtype=torch.bool, device=xp.device)
             if use_rec:
@@ -705,10 +765,54 @@ def make_round_step(cfg, cohort: int):
                 secs = round_upload_seconds(
                     P, Fp, torch.exp(net_logbw[ids]), lr_c, retransmit)
             delivered = deadline_delivered(secs, ctx.deadline_s)
-            if need_stale:
+            if need_stale or nonsync:
                 lateness = arrival_lateness(secs, ctx.deadline_s)
-            pkt_mask = pkt_mask * delivered[:, None]
-            arrival = delivered
+            if not nonsync:
+                # sync: a miss drops the whole upload, while its weight
+                # stays in the denominator
+                pkt_mask = pkt_mask * delivered[:, None]
+                arrival = delivered
+            else:
+                ontime = delivered
+                late = 1.0 - ontime
+                # semi_sync: a straggler landing within the grace window
+                # counts this round, discounted by its fractional
+                # staleness; later ones drop, and their weight leaves
+                # the denominator too
+                within = torch.where(
+                    ctx.deadline_s > 0.0,
+                    deadline_delivered(secs, ctx.deadline_s + ctx.grace_s),
+                    0.0)
+                a_semi = ontime + late * within * async_mod.staleness_weight(
+                    grace_staleness(secs, ctx.deadline_s), ctx.stale_alpha)
+                # async: on-time uploads count now, late ones land w(tau)-
+                # discounted tau rounds later; an infeasible upload
+                # (lateness pinned at MAX_LATENESS) is never buffered and
+                # logs 0
+                feasible = (lateness < MAX_LATENESS).float()
+                a_async_log = ontime + late * feasible \
+                    * async_mod.staleness_weight(lateness, ctx.stale_alpha)
+                if traced_srv:
+                    # each mode's expression as its static step computes
+                    # it, picked by where() on the one-hot
+                    is_sync = ctx.srv_mode[0] > 0.5
+                    is_semi = ctx.srv_mode[1] > 0.5
+                    is_async = ctx.srv_mode[2] > 0.5
+                    pkt_mask = torch.where(
+                        is_sync, loss_mask * delivered[:, None],
+                        torch.where(is_semi, loss_mask * within[:, None],
+                                    loss_mask))
+                    a_c = torch.where(
+                        is_sync, torch.ones_like(ontime),
+                        torch.where(is_semi, a_semi, ontime))
+                    arrival = torch.where(
+                        is_sync, delivered,
+                        torch.where(is_semi, a_semi, a_async_log))
+                elif srv_mode == "semi_sync":
+                    pkt_mask = loss_mask * within[:, None]
+                    a_c = arrival = a_semi
+                else:
+                    a_c, arrival = ontime, a_async_log
 
         # packet faults: damage in flight to the packets the channel and
         # the deadline deliver (a lost packet never reaches the server,
@@ -739,27 +843,84 @@ def make_round_step(cfg, cohort: int):
         # this same uplink pass computes; the controller reads them as its
         # divergence signal
         want_ssq = want_ssq or need_gnorm or use_bud
+        # the non-sync modes fold the arrival weight into the aggregation
+        # weights: a zero-weight straggler leaves the numerator and the
+        # denominator (EF and the norms take no weights, so a buffered
+        # upload is not counted twice through EF); sync multiplies by
+        # nothing
+        w_up = w_agg if a_c is None else w_agg * a_c
 
         if use_faults:
             # defended uplink: finite-screen quarantine (bad packets as if
             # lost), norm clip, trimmed mean; off gates are bitwise the
             # undefended expressions
             rob = robust_ops.robust_uplink_round(
-                xp, pkt_mask, w_agg, mode=debias, d_up=D_up,
+                xp, pkt_mask, w_up, mode=debias, d_up=D_up,
                 screen=ctx.d_screen, clip_norm=ctx.d_clip,
                 trim_gate=ctx.d_trim, trim_k=trim_k,
                 ef_rows=state.ef_mem[ids] if ef else None,
                 sufficient=suff, loss_rate=lr_deb, mult=mult,
                 want_ssq=want_ssq)
             agg, new_ef_rows, ssq = rob.agg, rob.ef_rows, rob.ssq
+            kept = rob.kept
         else:
             agg, new_ef_rows, ssq = uplink_ops.uplink_round(
-                xp, pkt_mask, w_agg, mode=debias, d_up=D_up,
+                xp, pkt_mask, w_up, mode=debias, d_up=D_up,
                 ef_rows=state.ef_mem[ids] if ef else None, kept=kept,
                 sufficient=suff, loss_rate=lr_deb, mult=mult,
                 want_ssq=want_ssq)
         new_ef = state.ef_mem.index_copy(0, ids, new_ef_rows) if ef \
             else state.ef_mem
+
+        # the async buffer: pop the entries due this round into the
+        # aggregate, push this round's late uploads
+        new_buf = state.buf
+        den_ready = None
+        if use_buf:
+            t_f = torch.tensor(float(t), device=agg.device)
+            num_ready, den_ready, popped = async_mod.buffer_pop_ready(
+                state.buf, t_f, ctx.stale_alpha)
+            # the kernel's aggregate is num / den with the scalar den =
+            # max(sum w_up, eps); ready entries extend both sides (the
+            # numerator one fused multiply-add, as XLA compiles the
+            # reference's). With nothing due, the kernel's output stays
+            # as it is (the recombination would round num / den through
+            # a multiply).
+            den_on = w_up.sum()
+            agg_buf = async_mod.fma(agg, torch.clamp(den_on, min=DENOM_EPS),
+                                    num_ready) \
+                / torch.clamp(den_on + den_ready, min=DENOM_EPS)
+            use_ready = den_ready > 0.0
+            if traced_srv:
+                use_ready = use_ready & is_async
+            agg = torch.where(use_ready, agg_buf, agg)
+            # the candidates: the debias-scaled loss-masked upload (the
+            # scale the kernel gives on-time clients), due ``lateness``
+            # rounds from now; an upload that never arrives stays out
+            q_full = uplink_ops.debias_client_scale(
+                w_agg, mode=debias, kept=kept, sufficient=suff,
+                loss_rate=lr_deb, mult=mult)
+            coord_mask = loss_mask[:, :, None].expand(C, P, Fp) \
+                .reshape(C, P * Fp)[:, :D_up]
+            base_rows = flat + state.ef_mem[ids] if ef else flat
+            if use_faults:
+                # the buffer launders no corrupted data: the norm clip
+                # applies to buffered contributions, a quarantined
+                # arrival is refused, and candidates are sanitised so a
+                # NaN in a lost packet cannot ride through 0 * NaN; all
+                # behind the traced gates, bitwise off when they are off
+                scr_on = ctx.d_screen > 0.5
+                q_full = q_full * rob.s_clip
+                base_rows = torch.where(scr_on & ~torch.isfinite(base_rows),
+                                        0.0, base_rows)
+            contrib = base_rows * coord_mask * q_full[:, None]
+            cand_live = (lateness > 0.0) & (lateness < MAX_LATENESS)
+            if use_faults:
+                cand_live = cand_live & ~(scr_on & (rob.qcnt > 0.0))
+            if traced_srv:
+                cand_live = cand_live & is_async
+            new_buf = async_mod.buffer_insert(
+                popped, contrib, t_f + lateness, w_agg, lateness, cand_live)
 
         c_global, c_i, lam = state.c_global, state.c_i, state.lam
         if scaffold:
@@ -778,6 +939,17 @@ def make_round_step(cfg, cohort: int):
                 + cfg.pfedme_beta * agg
         else:  # fedavg, perfedavg, afl: weighted mean of uploaded models
             new_vec = agg
+        if nonsync:
+            # a server step with nothing on time, in grace or due from the
+            # buffer is the identity, never 0/0 nor a zeroed model; sync
+            # keeps its all-stragglers collapse, the baseline the other
+            # modes fix
+            den_tot = w_up.sum() if den_ready is None \
+                else w_up.sum() + den_ready
+            has_arrivals = den_tot > 0.0
+            if traced_srv:
+                has_arrivals = has_arrivals | is_sync
+            new_vec = torch.where(has_arrivals, new_vec, old_vec)
         new_params = unflatten_like(new_vec, params)
         if algo == "afl":
             # projected gradient ascent on the clients' losses (minimax)
@@ -823,13 +995,15 @@ def make_round_step(cfg, cohort: int):
             # per-cohort-slot quarantined-packet counts
             logs["quarantine"] = rob.qcnt
         if use_dl:
-            # per-cohort-slot arrival: 1 landed on time, 0 dropped
+            # per-cohort-slot arrival weight: 1 landed on time at full
+            # weight, 0 dropped, the discount of a semi_sync or async
+            # straggler
             logs["arrival"] = arrival
         net = NetSimState(net_channel, net_logbw, net_down)
         return EngineState(new_params, new_ef, lam, net, echo_new,
                            rep_new, stale_new, bud_level, bud_loss,
                            c_global, c_i, gnorm_new, loss_new,
-                           late_new), logs
+                           late_new, new_buf), logs
 
     return step
 

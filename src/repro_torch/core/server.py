@@ -25,6 +25,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import client_updates as cu
 from repro_torch.core import tra as tra_mod
+from repro_torch.core.async_agg import AsyncConfig
 from repro_torch.core.engine import (RoundScanEngine,
                                      validate_device_config)
 from repro_torch.core.fairness import FairnessReport, fairness_report
@@ -47,8 +48,8 @@ from repro_torch.network.trace import (ClientNetworks, eligible_by_ratio,
 @dataclasses.dataclass
 class FLConfig:
     """The reference's top-level run configuration, for all six
-    algorithms. Sub-configs that later slices bring (server modes,
-    telemetry) are not part of the port yet."""
+    algorithms and the three server modes. Telemetry, which a later
+    slice brings, is not part of the port yet."""
     algo: str = "fedavg"  # fedavg|qfedavg|pfedme|perfedavg|afl|scaffold
     n_rounds: int = 100
     clients_per_round: int = 10
@@ -67,6 +68,12 @@ class FLConfig:
     # bandwidth walk, deadline delivery (the default is the iid channel
     # with both models off)
     netsim: NetSimConfig = dataclasses.field(default_factory=NetSimConfig)
+    # server aggregation mode (core/async_agg.py): sync (the default),
+    # semi_sync (a staleness-discounted grace window after the deadline)
+    # or async (late uploads wait in a K-slot arrival buffer and land
+    # discounted in the round they arrive); the non-sync modes need
+    # netsim.deadline=True
+    srv: AsyncConfig = dataclasses.field(default_factory=AsyncConfig)
     # uplink fault injection (netsim/faults.py) and the robust-aggregation
     # defenses against it (kernels/robust_agg); both off by default
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)

@@ -6,9 +6,12 @@ sufficiency masks, the dataset draw, the netsim knobs (burst length,
 emission rates, bandwidth correlation, deadline, downlink loss rate and
 deadline), the fault rates and the defense gates, the ARQ retries and
 backoff, the recovery policy itself when traced, the loss-budget
-controller's budget, EMA and divergence gate, and the selection
-threshold, temperature and exploration (and the selection policy itself
-when traced, so a policy x loss-rate grid is one batched step a round).
+controller's budget, EMA and divergence gate, the selection threshold,
+temperature and exploration (and the selection policy itself when
+traced, so a policy x loss-rate grid is one batched step a round), and
+the server's staleness exponent and grace window (and the server mode
+itself when traced, so a sync / semi_sync / async x loss-rate grid is
+one batched step a round too).
 ``SweepEngine`` stacks S scenarios behind a leading axis:
 ``ScenarioCtx`` fields become (S, ...) tensors, per-scenario
 ``EngineState``s are stacked, and the data is one shared (N, M, D) set
@@ -24,8 +27,9 @@ Static structure (algorithm, debias mode, cohort size, local steps,
 batch size, TRA on/off, error feedback, netsim model selection,
 ``faults.enabled``, ``defense.trim_k``, the selection policy unless
 traced, the recovery policy unless traced, the FEC group,
-``lossbudget.enabled``) must be shared across a sweep; the constructor
-and ``from_configs`` check that and raise on a mixed grid.
+``lossbudget.enabled``, the server mode unless traced and
+``srv.buffer_k``) must be shared across a sweep; the constructor and
+``from_configs`` check that and raise on a mixed grid.
 """
 from __future__ import annotations
 
@@ -37,12 +41,14 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import tra as tra_mod
+from repro_torch.core.async_agg import AsyncConfig
 from repro_torch.core.engine import (CTX_KNOB_FIELDS,
                                      SWEEP_VARYING_BUD_FIELDS,
                                      SWEEP_VARYING_FIELDS,
                                      SWEEP_VARYING_NETSIM_FIELDS,
                                      SWEEP_VARYING_REC_FIELDS,
                                      SWEEP_VARYING_SEL_FIELDS,
+                                     SWEEP_VARYING_SRV_FIELDS,
                                      SWEEP_VARYING_TRA_FIELDS, EngineState,
                                      ScenarioCtx, init_engine_state,
                                      make_round_step, scenario_knobs,
@@ -95,6 +101,10 @@ class Scenario:
     # threshold, temperature and exploration may vary, the policy only
     # with sel.traced; traced must agree
     sel: Optional[SelectionConfig] = None
+    # this cell's server knobs (None -> the sweep config's): the
+    # staleness exponent and grace window may vary, the mode only with
+    # srv.traced; traced and buffer_k must agree
+    srv: Optional[AsyncConfig] = None
 
 
 def scenario_from_config(cfg, data: FederatedDataset,
@@ -115,7 +125,7 @@ def scenario_from_config(cfg, data: FederatedDataset,
                     netsim=cfg.netsim, packet_loss=nets.packet_loss,
                     upload_mbps=nets.upload_mbps, faults=cfg.faults,
                     defense=cfg.defense, recovery=cfg.recovery,
-                    lossbudget=cfg.lossbudget, sel=cfg.sel)
+                    lossbudget=cfg.lossbudget, sel=cfg.sel, srv=cfg.srv)
 
 
 def _netsim_models(ns: NetSimConfig):
@@ -209,6 +219,17 @@ class SweepEngine:
                     f"static selection field (policy, traced); only sel."
                     f"{SWEEP_VARYING_SEL_FIELDS} may vary per cell (the "
                     f"policy itself only with sel.traced)")
+        srvs = [s.srv if s.srv is not None else cfg.srv
+                for s in self.scenarios]
+        for i, sv in enumerate(srvs):
+            if sv.traced != cfg.srv.traced \
+                    or sv.buffer_k != cfg.srv.buffer_k \
+                    or not (cfg.srv.traced or sv.mode == cfg.srv.mode):
+                raise ValueError(
+                    f"scenario {i} differs from the sweep config in a "
+                    f"static server field (mode, traced, buffer_k); only "
+                    f"srv.{SWEEP_VARYING_SRV_FIELDS} may vary per cell (the "
+                    f"mode itself only with srv.traced)")
         if cfg.tra.per_client_loss:
             if any(s.packet_loss is None for s in self.scenarios):
                 raise ValueError("tra.per_client_loss needs per-client "
@@ -232,7 +253,7 @@ class SweepEngine:
                 "(upload_mbps)")
         self._step = make_round_step(cfg, self.cohort)   # validates cfg
         knobs = [scenario_knobs(cfg, *per) for per in
-                 zip(nsims, flts, dfns, recs, buds, sels)]
+                 zip(nsims, flts, dfns, recs, buds, sels, srvs)]
 
         self.ctx = ScenarioCtx(
             base_key=torch.stack([prng.PRNGKey(s.seed, device=dev)
@@ -285,9 +306,10 @@ class SweepEngine:
                     f"{SWEEP_VARYING_SEL_FIELDS}, faults."
                     f"{SWEEP_VARYING_FAULT_FIELDS}, defense."
                     f"{SWEEP_VARYING_DEF_FIELDS}, recovery."
-                    f"{SWEEP_VARYING_REC_FIELDS} (and the selection or "
-                    f"recovery policy when traced) and lossbudget."
-                    f"{SWEEP_VARYING_BUD_FIELDS} may "
+                    f"{SWEEP_VARYING_REC_FIELDS}, lossbudget."
+                    f"{SWEEP_VARYING_BUD_FIELDS} and srv."
+                    f"{SWEEP_VARYING_SRV_FIELDS} (and the selection or "
+                    f"recovery policy or the server mode when traced) may "
                     f"vary in one sweep")
         if isinstance(datas, FederatedDataset):
             datas = [datas] * S
@@ -312,7 +334,7 @@ class SweepEngine:
                          packet_loss=n.packet_loss,
                          upload_mbps=n.upload_mbps, faults=c.faults,
                          defense=c.defense, recovery=c.recovery,
-                         lossbudget=c.lossbudget, sel=c.sel)
+                         lossbudget=c.lossbudget, sel=c.sel, srv=c.srv)
                 for i, (c, d, n) in enumerate(zip(cfgs, datas, nets))]
         return cls(cfgs[0], scen, device=device)
 
@@ -358,13 +380,16 @@ class SweepEngine:
 
 
 def _stack_states(states: Sequence[EngineState]) -> EngineState:
+    """S states stacked field by field; the nested carries (the params
+    dict, the netsim state and the arrival buffer) leaf by leaf."""
     s0 = states[0]
+    nested = ("net", "buf")
     fields = {name: torch.stack([getattr(s, name) for s in states])
               for name in EngineState._fields
-              if name not in ("params", "net")}
+              if name not in ("params",) + nested}
+    fields.update({name: type(getattr(s0, name))(
+        *(torch.stack(list(f)) for f in
+          zip(*(getattr(s, name) for s in states)))) for name in nested})
     return EngineState(
         params={k: torch.stack([s.params[k] for s in states])
-                for k in s0.params},
-        net=type(s0.net)(*(torch.stack(list(f)) for f in
-                           zip(*(s.net for s in states)))),
-        **fields)
+                for k in s0.params}, **fields)

@@ -10,8 +10,9 @@ expressions and their guards are the reference's
 (``repro/netsim/delivery.py``), in float32: degenerate inputs give the
 finite ``INFEASIBLE_SECS`` and a deterministic not-delivered bit.
 ``arrival_lateness`` counts the whole rounds an upload is late, which
-the ``staleness_aware`` selection policy remembers; ``grace_staleness``
-comes with the async server.
+the ``staleness_aware`` selection policy remembers and the async
+server's buffer waits; ``grace_staleness`` is the fractional lateness
+that discounts a semi_sync upload landing in the grace window.
 """
 from __future__ import annotations
 
@@ -65,3 +66,17 @@ def arrival_lateness(secs, deadline_s) -> torch.Tensor:
     dl = torch.where(dl_ok, deadline_s, 1.0)
     late = torch.clamp(torch.ceil(secs / dl) - 1.0, 0.0, MAX_LATENESS)
     return torch.where(dl_ok & torch.isfinite(late), late, MAX_LATENESS)
+
+
+def grace_staleness(secs, deadline_s) -> torch.Tensor:
+    """(C,) f32 fractional staleness (secs - deadline) / deadline of the
+    semi_sync grace-window discount, clamped to [0, MAX_LATENESS]; a
+    degenerate deadline (<= 0 or not finite) pins it at MAX_LATENESS,
+    never NaN."""
+    if not isinstance(deadline_s, torch.Tensor):
+        deadline_s = torch.tensor(deadline_s, dtype=torch.float32,
+                                  device=secs.device)
+    dl_ok = (deadline_s > 0.0) & torch.isfinite(deadline_s)
+    dl = torch.where(dl_ok, deadline_s, 1.0)
+    tau = torch.clamp((secs - dl) / dl, 0.0, MAX_LATENESS)
+    return torch.where(dl_ok & torch.isfinite(tau), tau, MAX_LATENESS)

@@ -49,7 +49,12 @@ SCAFFOLD on the card against the CPU: cohorts equal, carries rtol 1e-4
 gradient_norm policy's traffic), single and at S = 24, at the uplink
 tolerances; a traced selection grid (every policy x two loss rates) on
 the card against the CPU: cohorts and channel states bitwise, a round
-from the CPU's state within the grid tolerances.
+from the CPU's state within the grid tolerances. The traced server-mode
+grid (sync / semi_sync / async) and async with faults on the card
+against the CPU, each round from the CPU's state: cohorts, channel
+states, quarantine counts, arrival bits and the buffer's due and tau
+bitwise, arrival weights rtol 1e-6, params rtol 1e-4 / atol 1e-5; a
+checkpoint round-trip on the card bitwise.
 """
 import dataclasses
 
@@ -1536,3 +1541,122 @@ def test_cuda_traced_selection_grid_matches_cpu(dev):
                                    rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(card.gnorm_mem.cpu(), cpu.gnorm_mem,
                                rtol=1e-5, atol=1e-6)
+
+
+def _state_to(state, dev):
+    return type(state)(*(
+        {k: v.to(dev) for k, v in f.items()} if isinstance(f, dict)
+        else type(f)(*(x.to(dev) for x in f)) if isinstance(f, tuple)
+        else f.to(dev) for f in state))
+
+
+def _async_cfg(mode, loss_rate, **kw):
+    """The async grid's cell (examples/async_grid_torch.py) cut to 2 local
+    steps of 8 and 3 rounds."""
+    from repro_torch.core.async_agg import AsyncConfig
+    return FLConfig(algo="fedavg", n_rounds=3, clients_per_round=8,
+                    local_steps=2, batch_size=8, eval_every=100,
+                    error_feedback=True,
+                    tra=TRAConfig(enabled=True, loss_rate=loss_rate),
+                    netsim=NetSimConfig(channel="gilbert_elliott",
+                                        burst_len=8.0, deadline=True,
+                                        deadline_s=0.1),
+                    srv=AsyncConfig(mode=mode, buffer_k=6, grace_s=0.2,
+                                    **kw.pop("srv", {})), **kw)
+
+
+def _async_inputs():
+    data = generate_synthetic(np.random.default_rng(1), n_clients=20,
+                              alpha=0.5, beta=0.5)
+    return data, ClientNetworks(np.linspace(0.5, 20.0, 20),
+                                np.full(20, 0.05))
+
+
+@pytest.mark.cuda
+def test_cuda_traced_mode_grid_matches_cpu(dev):
+    """The sync / semi_sync / async x loss {0.1, 0.3} grid, traced: a
+    round on the card is one batched uplink launch and one mask launch;
+    each round from the CPU's state gives the CPU's cohorts, channel
+    states, arrival bits and buffer due and tau, params rtol 1e-4 / atol
+    1e-5, arrival weights rtol 1e-6."""
+    from repro_torch.core.async_agg import MODES
+    data, nets = _async_inputs()
+    cfgs = [_async_cfg(m, r, srv=dict(traced=True)) for m in MODES
+            for r in (0.1, 0.3)]
+    engs = {k: SweepEngine.from_configs(cfgs, data, nets, device=d)
+            for k, d in (("card", dev), ("cpu", "cpu"))}
+    cpu = engs["cpu"].init_states()
+    for t in range(3):
+        before = (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES)
+        card, lg = engs["card"].run_block(_state_to(cpu, dev), t, 1)
+        torch.cuda.synchronize()
+        assert (t_uf.LAUNCHES, t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES) == \
+            (before[0], before[1] + 1, before[2] + 1)
+        cpu, lc = engs["cpu"].run_block(cpu, t, 1)
+        np.testing.assert_array_equal(lg["ids"], lc["ids"])
+        np.testing.assert_array_equal(lg["arrival"] == 1.0,
+                                      lc["arrival"] == 1.0)
+        np.testing.assert_allclose(lg["arrival"], lc["arrival"], rtol=1e-6)
+        np.testing.assert_array_equal(card.net.channel.cpu(), cpu.net.channel)
+        for name in ("due", "tau"):
+            np.testing.assert_array_equal(getattr(card.buf, name).cpu(),
+                                          getattr(cpu.buf, name))
+        for k in cpu.params:
+            np.testing.assert_allclose(card.params[k].cpu(), cpu.params[k],
+                                       rtol=1e-4, atol=1e-5)
+    assert (cpu.buf.due < 3e9).any()
+
+
+@pytest.mark.cuda
+def test_cuda_async_faults_match_cpu(dev):
+    """Async with NaN failures, sign flips and echo replays behind the
+    screen and the clip: one robust_agg launch a round, and each round
+    from the CPU's state gives its cohorts, quarantine counts and buffer
+    due and tau, a finite buffer, params rtol 1e-4 / atol 1e-5."""
+    data, nets = _async_inputs()
+    cfg = _async_cfg("async", 0.3, seed=4,
+                     faults=FaultConfig(enabled=True, fail_rate=0.2,
+                                        flip_rate=0.2, echo_rate=0.2),
+                     defense=DefenseConfig(screen=True, clip=True,
+                                           clip_norm=2.0))
+    srv = {k: FederatedServer(cfg, data, nets, device=d)
+           for k, d in (("card", dev), ("cpu", "cpu"))}
+    cpu = srv["cpu"]._state
+    for t in range(3):
+        before = t_ra.LAUNCHES
+        card, lg = srv["card"].engine.run_block(_state_to(cpu, dev), t, 1)
+        torch.cuda.synchronize()
+        assert t_ra.LAUNCHES == before + 1
+        cpu, lc = srv["cpu"].engine.run_block(cpu, t, 1)
+        for name in ("ids", "quarantine"):
+            np.testing.assert_array_equal(lg[name], lc[name])
+        for name in ("due", "tau"):
+            np.testing.assert_array_equal(getattr(card.buf, name).cpu(),
+                                          getattr(cpu.buf, name))
+        assert torch.isfinite(card.buf.vec).all()
+        for k in cpu.params:
+            np.testing.assert_allclose(card.params[k].cpu(), cpu.params[k],
+                                       rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrip_is_bitwise(dev, tmp_path):
+    """2 async rounds on the card, save, load, 2 more: bitwise the
+    uninterrupted 4, live buffer entries at the boundary, the restored
+    leaves on the card."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    data, nets = _async_inputs()
+    srv = FederatedServer(_async_cfg("async", 0.3), data, nets, device=dev)
+    mid, _ = srv.engine.run_block(srv._state, 0, 2)
+    assert (mid.buf.due < 3e9).any()
+    path = save_checkpoint(str(tmp_path / "ck"), mid, step=2)
+    restored, step = load_checkpoint(path, mid)
+    assert step == 2 and restored.buf.vec.is_cuda
+    full, lf = srv.engine.run_block(mid, 2, 2)
+    resumed, lr = srv.engine.run_block(restored, 2, 2)
+    for a, b in zip(_state_to(full, "cpu"), _state_to(resumed, "cpu")):
+        for x, y in (zip(a.values(), b.values()) if isinstance(a, dict)
+                     else zip(a, b) if isinstance(a, tuple) else ((a, b),)):
+            assert torch.equal(x, y)
+    for k in lf:
+        np.testing.assert_array_equal(lr[k], lf[k])
