@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.async_agg import ArrivalBuffer
 from repro_torch.core.engine import EngineState
+from repro_torch.core.telemetry import TelemetryState
 from repro_torch.netsim.state import NetSimState
 
 
@@ -49,8 +50,9 @@ def engine_state_from_jax(state, device) -> EngineState:
     params, EF memory, AFL weights, simulator state (the downlink chain
     included), the fault model's echo and reputation memories, the
     stale-model buffer, the loss-budget controller's carries, SCAFFOLD's
-    control variates, the selection scores' memories and the async
-    server's arrival buffer, single or stacked along a scenario axis."""
+    control variates, the selection scores' memories, the async
+    server's arrival buffer and the telemetry's per-client aggregates,
+    single or stacked along a scenario axis."""
     def f32(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
@@ -64,7 +66,8 @@ def engine_state_from_jax(state, device) -> EngineState:
         bud_loss=f32(state.bud_loss), c_global=f32(state.c_global),
         c_i=f32(state.c_i), gnorm_mem=f32(state.gnorm_mem),
         loss_mem=f32(state.loss_mem), stale_mem=f32(state.stale_mem),
-        buf=ArrivalBuffer(*(f32(a) for a in state.buf)))
+        buf=ArrivalBuffer(*(f32(a) for a in state.buf)),
+        tele=TelemetryState(*(f32(a) for a in state.tele)))
 
 
 def model_params_from_jax(tree: Dict[str, Any], device) -> Dict[str, Any]:

@@ -72,24 +72,27 @@ kernels batch through their ops' vmap rules. Static structure
 on/off, error feedback, the netsim model selection, ``faults.enabled``,
 ``defense.trim_k``, the selection policy unless traced, the recovery
 policy unless traced, the FEC group, ``lossbudget.enabled``, the server
-mode unless traced and ``srv.buffer_k``) stays in the closure and must
-be shared across a sweep.
+mode unless traced, ``srv.buffer_k`` and the telemetry level) stays in
+the closure and must be shared across a sweep.
 
 This port runs the reference's round with: all six algorithms, all
 eight selection policies (static or traced), the three server modes
 (static or traced), the iid and Gilbert–Elliott channels, the AR(1)
 bandwidth walk, the deadline, the fault model with its defenses, the
 downlink model, the recovery policies and the loss-budget controller.
-No telemetry. With uniform selection, the sync server, the downlink
-off, one_shot recovery and the controller off, the step is the one of
-the earlier slices, bit for bit. ``run_block`` is a
-Python loop over the same step ``run_single`` runs, so the block and
-per-round paths agree by construction.
+With ``cfg.telemetry`` at "scalars" or "full" the step also logs the
+reference's ``"tele/..."`` keys and, at "full", carries the per-client
+aggregates (``core/telemetry.py``); at "off" it runs not one op for them.
+With uniform selection, the sync server, the downlink off, one_shot
+recovery, the controller off and telemetry off, the step is the one of
+the earlier slices, bit for bit. ``run_block`` is a Python loop over the
+same step ``run_single`` runs, so the block and per-round paths agree by
+construction.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,7 +104,9 @@ from repro_torch.core import client_updates as cu
 from repro_torch.core import lossbudget as bud_mod
 from repro_torch.core.mlp import mlp_weighted_loss
 from repro_torch.core import selection as sel_mod
+from repro_torch.core import telemetry as tele_mod
 from repro_torch.core.async_agg import ArrivalBuffer
+from repro_torch.core.telemetry import TelemetryState
 from repro_torch.core.tra import flatten_clients, unflatten_like
 from repro_torch.data.synthetic import DeviceDataset, stage_on_device
 from repro_torch.kernels.common import DENOM_EPS
@@ -165,6 +170,11 @@ class EngineState(NamedTuple):
     # arrival round and join the round they land in, staleness-
     # discounted; zero-size unless srv.mode is async or srv.traced
     buf: ArrivalBuffer
+    # the telemetry's cumulative per-client aggregates
+    # (core/telemetry.py): (N,) each at TelemetryConfig(level="full"),
+    # (0,) otherwise (last, so that the older carries keep their
+    # positions)
+    tele: TelemetryState
 
 
 class ScenarioCtx(NamedTuple):
@@ -189,6 +199,9 @@ class ScenarioCtx(NamedTuple):
     sel_policy: torch.Tensor  # (len(POLICIES),) f32 one-hot
     sel_logbw: torch.Tensor  # (N,) f32 static log upload speeds for the
     #                          bandwidth score, or (0,) without the draw
+    sel_qid: torch.Tensor    # (N,) int32 bandwidth quartile of each
+    #                          client in that draw (telemetry's
+    #                          part_quartile), or (0,) without the draw
     # fault rates and defense gates (read only when faults.enabled)
     f_corrupt: torch.Tensor  # () f32 P(packet Gaussian-corrupted)
     f_cscale: torch.Tensor   # () f32 corruption noise stddev
@@ -338,6 +351,15 @@ def static_logbw(upload_mbps, device) -> torch.Tensor:
     return log_upload_speeds(upload_mbps).to(device)
 
 
+def static_quartiles(upload_mbps, device) -> torch.Tensor:
+    """``ScenarioCtx.sel_qid``: ``telemetry.bandwidth_quartiles`` of the
+    static log speeds, taken on the host, or (0,) without a trace draw."""
+    if upload_mbps is None:
+        return torch.zeros((0,), dtype=torch.int32, device=device)
+    return tele_mod.bandwidth_quartiles(
+        log_upload_speeds(upload_mbps)).to(device)
+
+
 def validate_device_config(cfg, device) -> None:
     """Raise for a configuration that runs on the CPU but not on the
     card; called where an engine learns its device, before any round.
@@ -484,7 +506,8 @@ def init_engine_state(cfg, params, n_clients: int, *, base_key=None,
         stale_mem=score_mem("staleness_aware"),
         buf=async_mod.init_arrival_buffer(cfg.srv.buffer_k, up_dim, dev)
         if cfg.srv.traced or cfg.srv.mode == "async"
-        else async_mod.empty_arrival_buffer(dev))
+        else async_mod.empty_arrival_buffer(dev),
+        tele=tele_mod.init_telemetry_state(cfg.telemetry, n_clients, dev))
 
 
 def make_round_step(cfg, cohort: int):
@@ -553,6 +576,9 @@ def make_round_step(cfg, cohort: int):
     srv_mode = cfg.srv.mode
     use_buf = traced_srv or srv_mode == "async"
     nonsync = traced_srv or srv_mode != "sync"
+    # the telemetry level is static: "off" builds none of it in
+    tele_cfg = cfg.telemetry
+    tele_on = tele_cfg.level != "off"
 
     def step(ctx: ScenarioCtx, state: EngineState, t: int):
         dd = ctx.data
@@ -629,6 +655,7 @@ def make_round_step(cfg, cohort: int):
         # from that effective model
         net_down = state.net.down
         sc_args = (state.c_global, state.c_i[ids]) if scaffold else ()
+        dn_frac = None      # the realized downlink loss (telemetry)
         if use_down:
             if down_ge:
                 dp_gb, dp_bg = ge_transition_probs(
@@ -659,6 +686,8 @@ def make_round_step(cfg, cohort: int):
                 else torch.zeros((C, D_model), device=u_dt.device)
             eff_vec = coord_dn * old_vec[None, :] \
                 + (1.0 - coord_dn) * stale_rows
+            if tele_on:
+                dn_frac = tele_mod.one_minus_mean01(dmask)
             uploads, aux = train_own(unflatten_like(eff_vec, params), X, Y,
                                      *sc_args)
         else:
@@ -690,7 +719,9 @@ def make_round_step(cfg, cohort: int):
             """All three policies on the channel mask, mixed by a 0/1
             one-hot (1*x + 0*y + 0*z == x bitwise for finite masks): the
             scenario's policy, or the controller's per-client level.
-            Returns the mask, the one-hot and the realized loss."""
+            Returns the mask, the one-hot, the realized loss and, with
+            telemetry on, the packet fractions FEC and ARQ recovered
+            (else None)."""
             par_mask = rec_mod.fec_parity_mask(u_par, lr_col)
             mask_fec = fec_ops.fec_recover(base_mask, par_mask,
                                            group=rec_group)
@@ -705,9 +736,13 @@ def make_round_step(cfg, cohort: int):
             # fused with the subtraction (one rounding, from float64)
             realized = (1.0 - base_mask.sum(dim=1).double()
                         * float(np.float32(1.0 / P))).float()
-            return mask_eff, oh, realized
+            fracs = (tele_mod.xla_mean(mask_fec - base_mask),
+                     tele_mod.xla_mean(mask_arq - base_mask)) if tele_on \
+                else (None, None)
+            return mask_eff, oh, realized, fracs
 
         rec_oh = realized_c = None
+        fec_frac = arq_frac = None
         if use_ge:
             # bursty loss: each cohort client's channel walks P packet
             # steps and its final state goes back into the carry.
@@ -722,11 +757,12 @@ def make_round_step(cfg, cohort: int):
                 ctx.good_loss, ctx.bad_loss)
             net_channel = net_channel.index_copy(0, ids, s_fin)
             if use_rec:
-                ge_mask, rec_oh, realized_c = apply_recovery(ge_mask)
+                ge_mask, rec_oh, realized_c, (fec_frac, arq_frac) = \
+                    apply_recovery(ge_mask)
             pkt_mask = torch.where(suff.bool()[:, None], 1.0, ge_mask)
         elif tra_cfg.enabled and use_rec:
-            mask_eff, rec_oh, realized_c = apply_recovery(
-                (u_tra >= lr_col).float())
+            mask_eff, rec_oh, realized_c, (fec_frac, arq_frac) = \
+                apply_recovery((u_tra >= lr_col).float())
             pkt_mask = torch.where(suff.bool()[:, None], 1.0, mask_eff)
         elif tra_cfg.enabled:
             lost = (u_tra < lr_col) & ~suff.bool()[:, None]
@@ -765,7 +801,7 @@ def make_round_step(cfg, cohort: int):
                 secs = round_upload_seconds(
                     P, Fp, torch.exp(net_logbw[ids]), lr_c, retransmit)
             delivered = deadline_delivered(secs, ctx.deadline_s)
-            if need_stale or nonsync:
+            if need_stale or nonsync or tele_on:
                 lateness = arrival_lateness(secs, ctx.deadline_s)
             if not nonsync:
                 # sync: a miss drops the whole upload, while its weight
@@ -973,8 +1009,9 @@ def make_round_step(cfg, cohort: int):
         # the controller: the policy used this round was read from the
         # carried level; the level and EMA written here drive the next
         bud_level, bud_loss = state.bud_level, state.bud_loss
+        n_esc = lv = None
         if use_bud:
-            lv, ema_new, _ = bud_mod.controller_update(
+            lv, ema_new, n_esc = bud_mod.controller_update(
                 bud_level[ids], bud_loss[ids], realized_c, ssq,
                 budget=ctx.bud_budget, beta=ctx.bud_ema,
                 div_gate=ctx.bud_div)
@@ -999,13 +1036,75 @@ def make_round_step(cfg, cohort: int):
             # weight, 0 dropped, the discount of a semi_sync or async
             # straggler
             logs["arrival"] = arrival
+        # telemetry: the round's "tele/..." keys and, at "full", the
+        # per-client aggregates, read from signals the round computed
+        new_tele = state.tele
+        if tele_on:
+            tele_scale = uplink_ops.debias_client_scale(
+                w_agg, mode=debias, kept=kept, sufficient=suff,
+                loss_rate=lr_deb, mult=mult)
+            tlogs, new_tele = tele_mod.round_telemetry(
+                tele_cfg, state.tele, ids=ids, n_clients=N,
+                pkt_mask=pkt_mask, loss_mask=loss_mask, old_vec=old_vec,
+                new_vec=new_vec, scale=tele_scale,
+                qid=ctx.sel_qid,
+                ef_new_rows=new_ef_rows if ef else None,
+                arrival=arrival if use_dl else None,
+                lateness=lateness if use_dl else None,
+                qcnt=rob.qcnt if use_faults else None,
+                buf_due=new_buf.due if use_buf else None,
+                buf_empty_due=async_mod.EMPTY_DUE, down_frac=dn_frac,
+                fec_frac=fec_frac, arq_frac=arq_frac, bud_escal=n_esc,
+                bud_level=tele_mod.xla_mean(lv) if use_bud else None)
+            logs.update(tlogs)
         net = NetSimState(net_channel, net_logbw, net_down)
         return EngineState(new_params, new_ef, lam, net, echo_new,
                            rep_new, stale_new, bud_level, bud_loss,
                            c_global, c_i, gnorm_new, loss_new,
-                           late_new, new_buf), logs
+                           late_new, new_buf, new_tele), logs
 
     return step
+
+
+# step cache shared across engine instances: scenario-varying values ride
+# the ScenarioCtx argument, so every engine (and server) with the same
+# static config and cohort reuses one step. The registry
+# (core/telemetry.REGISTRY) logs every lookup's key fingerprint, and the
+# TimedPrograms book each dispatch's host time against it.
+_STEP_CACHE: Dict[Any, Any] = {}
+
+
+def _run_rounds(step, ctx, state, t0: int, k: int):
+    """Rounds [t0, t0+k) through ``step``; the logs stacked on the
+    device, (k, ...) a key (a leading scenario axis stays first)."""
+    logs = []
+    for t in range(t0, t0 + k):
+        state, lg = step(ctx, state, t)
+        logs.append(lg)
+    dim = 1 if logs[0]["loss"].dim() == 1 else 0
+    return state, {name: torch.stack([lg[name] for lg in logs], dim=dim)
+                   for name in logs[0]}
+
+
+def cached_step(cfg, cohort: int):
+    """(step, single, block) for ``cfg`` at ``cohort``: the round step,
+    and its one-round and block dispatchers wrapped in
+    ``telemetry.TimedProgram``, built on the first lookup of the key
+    ``(_static_key(cfg), cohort)`` and reused after it."""
+    # validate before the lookup: the key normalises the sweep-varying
+    # fields away, so an invalid config could hit a valid cached step
+    validate_round_config(cfg)
+    key = (_static_key(cfg), cohort)
+    hit = key in _STEP_CACHE
+    fp = tele_mod.REGISTRY.record_lookup("engine", key, hit=hit)
+    if not hit:
+        step = make_round_step(cfg, cohort)
+        single = tele_mod.TimedProgram(step, "engine", fp)
+        block = tele_mod.TimedProgram(
+            lambda ctx, state, t0, k: _run_rounds(step, ctx, state, t0, k),
+            "engine", fp)
+        _STEP_CACHE[key] = (step, single, block)
+    return _STEP_CACHE[key]
 
 
 def gumbel_topk_select(key: torch.Tensor, eligible: torch.Tensor,
@@ -1057,7 +1156,8 @@ class RoundScanEngine:
         self._upload_mbps = None if upload_mbps is None \
             else np.asarray(upload_mbps, np.float32)
         dev = self.device
-        self._step = make_round_step(cfg, self.cohort)   # validates cfg
+        self._step, self._single, self._block = cached_step(cfg,
+                                                            self.cohort)
         self.ctx = ScenarioCtx(
             base_key=prng.PRNGKey(cfg.seed, device=dev),
             loss_rate=torch.tensor(loss_rate, device=dev),
@@ -1066,6 +1166,7 @@ class RoundScanEngine:
                                     device=dev),
             data=self.dd,
             sel_logbw=static_logbw(self._upload_mbps, dev),
+            sel_qid=static_quartiles(self._upload_mbps, dev),
             **{f: torch.tensor(v, device=dev)
                for f, v in scenario_knobs(cfg).items()})
 
@@ -1078,16 +1179,15 @@ class RoundScanEngine:
     def run_single(self, state: EngineState, t: int
                    ) -> Tuple[EngineState, Dict[str, torch.Tensor]]:
         """One round at absolute index ``t``."""
-        return self._step(self.ctx, state, t)
+        return self._single(self.ctx, state, t)
 
     def run_block(self, state: EngineState, t0: int, k: int
                   ) -> Tuple[EngineState, Dict[str, np.ndarray]]:
         """Rounds [t0, t0+k); logs come to the host once, at the end.
         Returns (state, {"loss": (k,), "ids": (k, C)[, "quarantine":
-        (k, C)][, "arrival": (k, C)]})."""
-        logs = []
-        for t in range(t0, t0 + k):
-            state, lg = self._step(self.ctx, state, t)
-            logs.append(lg)
-        return state, {name: torch.stack([lg[name] for lg in logs])
-                       .cpu().numpy() for name in logs[0]}
+        (k, C)][, "arrival": (k, C)][, "tele/...": (k, ...)]}): with
+        telemetry on, one key a ``tele/`` signal built into the step,
+        (k,) for a scalar, (k, 4) for ``tele/part_quartile`` and (k,
+        stale_bins) for ``tele/stale_hist``."""
+        state, logs = self._block(self.ctx, state, t0, k)
+        return state, {name: v.cpu().numpy() for name, v in logs.items()}

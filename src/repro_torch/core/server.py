@@ -8,6 +8,9 @@ server's device. ``run`` steps blocks of rounds between evaluation
 boundaries; ``run_round`` runs the same step once per call, so the two
 paths give the same result. ``run_grid`` runs a grid of same-shaped
 scenario configs as one batched step per round (``core/sweep.py``).
+Both take ``events=``, a JSONL path or an open ``EventWriter``
+(``utils/events.py``), and stream the per-round telemetry records
+(``core/telemetry.py``) there as blocks flush.
 
 Eligibility (the paper's comparison axis):
   "all"        every client eligible (TRA's fair selection)
@@ -24,15 +27,17 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core import client_updates as cu
+from repro_torch.core import telemetry as tele_mod
 from repro_torch.core import tra as tra_mod
 from repro_torch.core.async_agg import AsyncConfig
-from repro_torch.core.engine import (RoundScanEngine,
+from repro_torch.core.engine import (RoundScanEngine, _static_key,
                                      validate_device_config)
 from repro_torch.core.fairness import FairnessReport, fairness_report
 from repro_torch.core.lossbudget import LossBudgetConfig
 from repro_torch.core.mlp import mlp_accuracy, mlp_init
 from repro_torch.core.selection import SelectionConfig
 from repro_torch.core.sweep import SweepEngine
+from repro_torch.core.telemetry import TelemetryConfig
 from repro_torch.core.tra import TRAConfig
 from repro_torch.data.synthetic import (FederatedDataset, padded_eval_set,
                                         sample_batches)
@@ -43,13 +48,13 @@ from repro_torch.netsim.recovery import RecoveryConfig
 from repro_torch.network.trace import (ClientNetworks, eligible_by_ratio,
                                        eligible_by_threshold,
                                        eligible_mask_device, sample_networks)
+from repro_torch.utils.events import EventWriter, fingerprint_of
 
 
 @dataclasses.dataclass
 class FLConfig:
     """The reference's top-level run configuration, for all six
-    algorithms and the three server modes. Telemetry, which a later
-    slice brings, is not part of the port yet."""
+    algorithms, the three server modes and the telemetry levels."""
     algo: str = "fedavg"  # fedavg|qfedavg|pfedme|perfedavg|afl|scaffold
     n_rounds: int = 100
     clients_per_round: int = 10
@@ -88,6 +93,11 @@ class FLConfig:
     # default, and it needs recovery.traced
     lossbudget: LossBudgetConfig = dataclasses.field(
         default_factory=LossBudgetConfig)
+    # device-resident telemetry (core/telemetry.py): "off" (the default)
+    # builds none of it into the step; "scalars" logs the per-round
+    # "tele/..." keys; "full" also carries per-client aggregates
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
     # algorithm hyper-parameters (paper / source-code defaults)
     q: float = 1.0                    # q-FedAvg fairness exponent
     # q-FedAvg Lipschitz estimate (1.0 restores the paper's behaviour
@@ -210,9 +220,25 @@ class FederatedServer:
         return self.rng.choice(elig, n, replace=False)
 
     # -- public API ---------------------------------------------------------
+    def _open_events(self, events):
+        """(writer, owned): an EventWriter passes through, a path is
+        opened and stamped. The caller closes an owned writer."""
+        if events is None or isinstance(events, EventWriter):
+            return events, False
+        cfg = self.cfg
+        return EventWriter(
+            events,
+            config_fingerprint=fingerprint_of(_static_key(cfg)),
+            meta={"n_clients": self.data.n_clients,
+                  "n_rounds": cfg.n_rounds, "algo": cfg.algo,
+                  "engine": cfg.engine,
+                  "telemetry_level": cfg.telemetry.level},
+            device=self.device), True
+
     def run_round(self, t: int) -> RoundLog:
         cfg = self.cfg
         self._state, ys = self.engine.run_single(self._state, t)
+        self._last_ys = ys
         log = RoundLog(t, float(ys["loss"]))
         if (t + 1) % cfg.eval_every == 0 or t == cfg.n_rounds - 1:
             log.report = self.evaluate()
@@ -221,27 +247,51 @@ class FederatedServer:
         self.history.append(log)
         return log
 
-    def run(self) -> List[RoundLog]:
-        """Run all rounds."""
+    def run(self, events=None) -> List[RoundLog]:
+        """Run all rounds. ``events`` (None, a JSONL path or an open
+        ``EventWriter``) streams the typed per-round telemetry records
+        as blocks flush, then, at level="full", each client's
+        aggregates (a ``client_stats`` event), then the program-timing
+        ledger (``program`` events)."""
         cfg = self.cfg
-        if cfg.engine == "per_round":
-            for t in range(cfg.n_rounds):
-                self.run_round(t)
-            return self.history
-        # blocks of rounds, cut at evaluation boundaries
-        t = 0
-        while t < cfg.n_rounds:
-            t1 = min((t // cfg.eval_every + 1) * cfg.eval_every,
-                     cfg.n_rounds)
-            self._state, logs = self.engine.run_block(self._state, t, t1 - t)
-            for i, loss in enumerate(logs["loss"]):
-                self.history.append(RoundLog(t + i, float(loss)))
-            if t1 % cfg.eval_every == 0 or t1 == cfg.n_rounds:
-                self.history[-1].report = self.evaluate()
-                if cfg.algo in cu.PERSONALIZE_FNS:
-                    self.history[-1].personalized = \
-                        self.evaluate_personalized()
-            t = t1
+        writer, own = self._open_events(events)
+        try:
+            if cfg.engine == "per_round":
+                for t in range(cfg.n_rounds):
+                    self.run_round(t)
+                    if writer is not None:
+                        logs1 = {k: v.cpu().numpy()[None]
+                                 for k, v in self._last_ys.items()}
+                        for rec in tele_mod.records_from_logs(logs1, t0=t):
+                            writer.write_round(rec)
+            else:
+                # blocks of rounds, cut at evaluation boundaries
+                t = 0
+                while t < cfg.n_rounds:
+                    t1 = min((t // cfg.eval_every + 1) * cfg.eval_every,
+                             cfg.n_rounds)
+                    self._state, logs = self.engine.run_block(
+                        self._state, t, t1 - t)
+                    for i, loss in enumerate(logs["loss"]):
+                        self.history.append(RoundLog(t + i, float(loss)))
+                    if writer is not None:
+                        for rec in tele_mod.records_from_logs(logs, t0=t):
+                            writer.write_round(rec)
+                    if t1 % cfg.eval_every == 0 or t1 == cfg.n_rounds:
+                        self.history[-1].report = self.evaluate()
+                        if cfg.algo in cu.PERSONALIZE_FNS:
+                            self.history[-1].personalized = \
+                                self.evaluate_personalized()
+                    t = t1
+            if writer is not None:
+                if cfg.telemetry.level == "full":
+                    writer.write("client_stats", {
+                        "scenario": 0,
+                        **tele_mod.final_client_stats(self._state.tele)})
+                writer.write_program_stats(tele_mod.REGISTRY.stats())
+        finally:
+            if own and writer is not None:
+                writer.close()
         return self.history
 
     # -- evaluation ----------------------------------------------------------
@@ -294,7 +344,7 @@ def _stacked_eval_sets(datas: Sequence[FederatedDataset], device):
 
 
 def run_grid(cfgs: Sequence[FLConfig], datas, nets=None, *, device=None,
-             init_params=None) -> List[List[RoundLog]]:
+             init_params=None, events=None) -> List[List[RoundLog]]:
     """Run a grid of same-shaped scenario configs as one batched round
     step per round (``core/sweep.SweepEngine``) and demux per-scenario
     histories.
@@ -305,30 +355,62 @@ def run_grid(cfgs: Sequence[FLConfig], datas, nets=None, *, device=None,
     ``SweepEngine.from_configs``. ``device`` None means the card (raises
     without one); ``init_params`` is an optional list of S parameter
     dicts in place of each scenario's seeded ``mlp_init``.
+
+    ``events`` (None, a JSONL path or an open ``EventWriter``) streams
+    the per-scenario telemetry records (scenario-major within each
+    block), then, at level="full", each scenario's per-client aggregates
+    and the program-timing ledger.
     """
     engine = SweepEngine.from_configs(cfgs, datas, nets, device=device)
     cfg = engine.cfg
     S = engine.n_scenarios
+    if events is None or isinstance(events, EventWriter):
+        writer, own = events, False
+    else:
+        writer, own = EventWriter(
+            events,
+            config_fingerprint=fingerprint_of(_static_key(cfg)),
+            meta={"n_scenarios": S, "n_rounds": cfg.n_rounds,
+                  "algo": cfg.algo, "engine": "sweep",
+                  "telemetry_level": cfg.telemetry.level},
+            device=engine.device), True
     X, Y, W = _stacked_eval_sets([s.data for s in engine.scenarios],
                                  engine.device)
     eval_fn = torch.func.vmap(torch.func.vmap(mlp_accuracy,
                                               in_dims=(None, 0, 0, 0)))
     states = engine.init_states(init_params)
     histories: List[List[RoundLog]] = [[] for _ in range(S)]
-    t = 0
-    while t < cfg.n_rounds:
-        t1 = min((t // cfg.eval_every + 1) * cfg.eval_every, cfg.n_rounds)
-        states, logs = engine.run_block(states, t, t1 - t)
-        for s in range(S):
-            for i in range(t1 - t):
-                histories[s].append(
-                    RoundLog(t + i, float(logs["loss"][s, i])))
-        if t1 % cfg.eval_every == 0 or t1 == cfg.n_rounds:
-            with torch.no_grad():
-                acc, correct, n = eval_fn(states.params, X, Y, W)
-            acc, correct, n = (a.cpu().numpy() for a in (acc, correct, n))
+    try:
+        t = 0
+        while t < cfg.n_rounds:
+            t1 = min((t // cfg.eval_every + 1) * cfg.eval_every,
+                     cfg.n_rounds)
+            states, logs = engine.run_block(states, t, t1 - t)
             for s in range(S):
-                histories[s][-1].report = fairness_report(
-                    acc[s], n[s], correct[s])
-        t = t1
+                for i in range(t1 - t):
+                    histories[s].append(
+                        RoundLog(t + i, float(logs["loss"][s, i])))
+            if writer is not None:
+                for rec in tele_mod.records_from_logs(logs, t0=t):
+                    writer.write_round(rec)
+            if t1 % cfg.eval_every == 0 or t1 == cfg.n_rounds:
+                with torch.no_grad():
+                    acc, correct, n = eval_fn(states.params, X, Y, W)
+                acc, correct, n = (a.cpu().numpy()
+                                   for a in (acc, correct, n))
+                for s in range(S):
+                    histories[s][-1].report = fairness_report(
+                        acc[s], n[s], correct[s])
+            t = t1
+        if writer is not None:
+            if cfg.telemetry.level == "full":
+                stats = tele_mod.final_client_stats(states.tele)
+                for s in range(S):
+                    writer.write("client_stats", {
+                        "scenario": s,
+                        **{k: v[s] for k, v in stats.items()}})
+            writer.write_program_stats(tele_mod.REGISTRY.stats())
+    finally:
+        if own and writer is not None:
+            writer.close()
     return histories

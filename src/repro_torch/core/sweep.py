@@ -27,19 +27,23 @@ Static structure (algorithm, debias mode, cohort size, local steps,
 batch size, TRA on/off, error feedback, netsim model selection,
 ``faults.enabled``, ``defense.trim_k``, the selection policy unless
 traced, the recovery policy unless traced, the FEC group,
-``lossbudget.enabled``, the server mode unless traced and
-``srv.buffer_k``) must be shared across a sweep; the constructor and
-``from_configs`` check that and raise on a mixed grid.
+``lossbudget.enabled``, the server mode unless traced,
+``srv.buffer_k`` and the telemetry level) must be shared across a sweep;
+the constructor and ``from_configs`` check that and raise on a mixed
+grid. A grid is one step: ``core/telemetry.REGISTRY`` logs one "sweep"
+lookup a ``SweepEngine``, and ``programs_for("sweep")`` counts the steps
+built.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import telemetry as tele_mod
 from repro_torch.core import tra as tra_mod
 from repro_torch.core.async_agg import AsyncConfig
 from repro_torch.core.engine import (CTX_KNOB_FIELDS,
@@ -50,10 +54,12 @@ from repro_torch.core.engine import (CTX_KNOB_FIELDS,
                                      SWEEP_VARYING_SEL_FIELDS,
                                      SWEEP_VARYING_SRV_FIELDS,
                                      SWEEP_VARYING_TRA_FIELDS, EngineState,
-                                     ScenarioCtx, init_engine_state,
-                                     make_round_step, scenario_knobs,
-                                     static_logbw, static_signature,
-                                     validate_device_config)
+                                     ScenarioCtx, _run_rounds, _static_key,
+                                     init_engine_state, make_round_step,
+                                     scenario_knobs, static_logbw,
+                                     static_quartiles, static_signature,
+                                     validate_device_config,
+                                     validate_round_config)
 from repro_torch.core.lossbudget import LossBudgetConfig
 from repro_torch.core.mlp import mlp_init
 from repro_torch.core.selection import SelectionConfig
@@ -126,6 +132,39 @@ def scenario_from_config(cfg, data: FederatedDataset,
                     upload_mbps=nets.upload_mbps, faults=cfg.faults,
                     defense=cfg.defense, recovery=cfg.recovery,
                     lossbudget=cfg.lossbudget, sel=cfg.sel, srv=cfg.srv)
+
+
+# the sweep's step cache: one batched step a key (the static config, the
+# cohort and whether the dataset is stacked), every lookup logged in
+# core/telemetry.REGISTRY under "sweep"
+_SWEEP_CACHE: Dict[Any, Any] = {}
+
+
+def _ctx_dims(data_batched: bool) -> ScenarioCtx:
+    """The vmap in_dims of a stacked ScenarioCtx: every field on its
+    leading scenario axis, the dataset only when it is stacked."""
+    data_dim = 0 if data_batched else None
+    return ScenarioCtx(
+        base_key=0, loss_rate=0, eligible=0, sufficient=0,
+        data=DeviceDataset(data_dim, data_dim, data_dim), sel_logbw=0,
+        sel_qid=0, **{f: 0 for f in CTX_KNOB_FIELDS})
+
+
+def cached_sweep_step(cfg, cohort: int, data_batched: bool):
+    """(step, block) of the batched round: ``make_round_step`` vmapped
+    over the scenario axis, and its block dispatcher wrapped in
+    ``telemetry.TimedProgram``, built on the first lookup of its key."""
+    validate_round_config(cfg)
+    key = (_static_key(cfg), cohort, data_batched)
+    hit = key in _SWEEP_CACHE
+    fp = tele_mod.REGISTRY.record_lookup("sweep", key, hit=hit)
+    if not hit:
+        vstep = torch.func.vmap(make_round_step(cfg, cohort),
+                                in_dims=(_ctx_dims(data_batched), 0, None))
+        _SWEEP_CACHE[key] = (vstep, tele_mod.TimedProgram(
+            lambda ctx, states, t0, k: _run_rounds(vstep, ctx, states, t0,
+                                                   k), "sweep", fp))
+    return _SWEEP_CACHE[key]
 
 
 def _netsim_models(ns: NetSimConfig):
@@ -251,7 +290,8 @@ class SweepEngine:
                 "the bandwidth_threshold selection score (and the traced "
                 "policy family) needs per-client speeds on every Scenario "
                 "(upload_mbps)")
-        self._step = make_round_step(cfg, self.cohort)   # validates cfg
+        self._vstep, self._block = cached_sweep_step(
+            cfg, self.cohort, self.data_batched)
         knobs = [scenario_knobs(cfg, *per) for per in
                  zip(nsims, flts, dfns, recs, buds, sels, srvs)]
 
@@ -270,15 +310,12 @@ class SweepEngine:
                                    for s in self.scenarios])
             if have_speeds else torch.zeros((self.n_scenarios, 0),
                                             device=dev),
+            sel_qid=torch.stack([static_quartiles(s.upload_mbps, dev)
+                                 for s in self.scenarios])
+            if have_speeds else torch.zeros((self.n_scenarios, 0),
+                                            dtype=torch.int32, device=dev),
             **{f: torch.tensor(np.stack([k[f] for k in knobs]), device=dev)
                for f in CTX_KNOB_FIELDS})
-        data_dim = 0 if self.data_batched else None
-        ctx_dims = ScenarioCtx(
-            base_key=0, loss_rate=0, eligible=0, sufficient=0,
-            data=DeviceDataset(data_dim, data_dim, data_dim), sel_logbw=0,
-            **{f: 0 for f in CTX_KNOB_FIELDS})
-        self._vstep = torch.func.vmap(self._step,
-                                      in_dims=(ctx_dims, 0, None))
 
     @classmethod
     def from_configs(cls, cfgs: Sequence, datas, nets=None, *,
@@ -364,13 +401,10 @@ class SweepEngine:
         """Rounds [t0, t0+k) of all scenarios, one batched step per
         round; logs come to the host once, demuxed scenario-major.
         Returns (states, {"loss": (S, k), "ids": (S, k, C)[,
-        "quarantine": (S, k, C)][, "arrival": (S, k, C)]})."""
-        logs: List[Dict[str, torch.Tensor]] = []
-        for t in range(t0, t0 + k):
-            states, lg = self._vstep(self.ctx, states, t)
-            logs.append(lg)
-        return states, {name: torch.stack([lg[name] for lg in logs], dim=1)
-                        .cpu().numpy() for name in logs[0]}
+        "quarantine": (S, k, C)][, "arrival": (S, k, C)][, "tele/...":
+        (S, k, ...)]})."""
+        states, logs = self._block(self.ctx, states, t0, k)
+        return states, {name: v.cpu().numpy() for name, v in logs.items()}
 
     def run(self, n_rounds: Optional[int] = None, params=None
             ) -> Tuple[EngineState, Dict[str, np.ndarray]]:
@@ -381,9 +415,10 @@ class SweepEngine:
 
 def _stack_states(states: Sequence[EngineState]) -> EngineState:
     """S states stacked field by field; the nested carries (the params
-    dict, the netsim state and the arrival buffer) leaf by leaf."""
+    dict, the netsim state, the arrival buffer and the telemetry's
+    aggregates) leaf by leaf."""
     s0 = states[0]
-    nested = ("net", "buf")
+    nested = ("net", "buf", "tele")
     fields = {name: torch.stack([getattr(s, name) for s in states])
               for name in EngineState._fields
               if name not in ("params",) + nested}

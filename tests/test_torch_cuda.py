@@ -54,7 +54,12 @@ grid (sync / semi_sync / async) and async with faults on the card
 against the CPU, each round from the CPU's state: cohorts, channel
 states, quarantine counts, arrival bits and the buffer's due and tau
 bitwise, arrival weights rtol 1e-6, params rtol 1e-4 / atol 1e-5; a
-checkpoint round-trip on the card bitwise.
+checkpoint round-trip on the card bitwise. Telemetry at level full on
+the card against the CPU (a traced selection grid, a grid with EF, the
+recovery policies under the i.i.d. downlink), each round from the CPU's
+state: the same keys, the count keys and the carry's counts bitwise, the
+norms rtol 1e-4, the means 1e-6; a stream stamped with the card; level
+off dispatching the ops of the step frozen before the later subsystems.
 """
 import dataclasses
 
@@ -1660,3 +1665,144 @@ def test_cuda_checkpoint_roundtrip_is_bitwise(dev, tmp_path):
             assert torch.equal(x, y)
     for k in lf:
         np.testing.assert_array_equal(lr[k], lf[k])
+
+
+# the telemetry keys that are counts, or means of 0/1 masks and counts:
+# equal on the card and the CPU; the rest within these tolerances
+TELE_EXACT = ("tele/delivered_frac", "tele/realized_loss",
+              "tele/part_quartile", "tele/stale_hist", "tele/quar_frac",
+              "tele/buf_fill", "tele/downlink_loss", "tele/fec_recovered",
+              "tele/arq_recovered", "tele/budget_escalations",
+              "tele/rec_level_mean")
+TELE_RTOL = {"tele/update_norm": 1e-4, "tele/ef_norm": 1e-4,
+             "tele/debias_scale_mean": 1e-6, "tele/arrival_mean": 1e-6}
+
+
+def _tele_grid(case):
+    """Small grids at telemetry level full, and their FEC launches a
+    round: every selection policy (traced) x loss {0.1, 0.3}; the GE grid
+    with EF; the recovery policies (traced) under the i.i.d. downlink."""
+    from repro_torch.core.selection import POLICIES, SelectionConfig
+    from repro_torch.core.telemetry import TelemetryConfig
+    base = FLConfig(algo="fedavg", n_rounds=3, clients_per_round=8,
+                    local_steps=2, batch_size=8, eval_every=100,
+                    tra=TRAConfig(enabled=True, debias="group_rate"),
+                    netsim=NetSimConfig(channel="gilbert_elliott"),
+                    telemetry=TelemetryConfig(level="full"))
+    rates = (0.1, 0.3)
+    if case == "selection":
+        return [dataclasses.replace(
+            base, sel=SelectionConfig(policy=p, traced=True,
+                                      temperature=0.5),
+            tra=dataclasses.replace(base.tra, loss_rate=r))
+            for p in POLICIES for r in rates], 0
+    if case == "ef":
+        return [dataclasses.replace(
+            base, error_feedback=True,
+            tra=dataclasses.replace(base.tra, loss_rate=r)) for r in rates], 0
+    return [dataclasses.replace(
+        base, tra=dataclasses.replace(base.tra, loss_rate=r),
+        netsim=dataclasses.replace(base.netsim, down_channel="iid",
+                                   down_loss=0.3),
+        recovery=RecoveryConfig(policy=p, traced=True))
+        for p in ("one_shot", "fec", "arq") for r in rates], 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["selection", "ef", "iid_downlink"])
+def test_cuda_telemetry_grid_matches_cpu(dev, case):
+    """A grid at level full, each round on the card from the CPU's state:
+    one batched uplink and one mask launch a round (and one FEC launch
+    with recovery), the same telemetry keys, the count keys and the
+    carry's counts equal, the norms and means within TELE_RTOL."""
+    cfgs, fec = _tele_grid(case)
+    data = generate_synthetic(np.random.default_rng(0), n_clients=20,
+                              alpha=0.5, beta=0.5)
+    nets = sample_networks(np.random.default_rng(2026), 20)
+    engs = {k: SweepEngine.from_configs(cfgs, data, nets, device=d)
+            for k, d in (("card", dev), ("cpu", "cpu"))}
+    cpu = engs["cpu"].init_states()
+    for t in range(3):
+        before = (t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES, t_fc.LAUNCHES)
+        card, lg = engs["card"].run_block(_state_to(cpu, dev), t, 1)
+        torch.cuda.synchronize()
+        assert (t_uf.BATCHED_LAUNCHES, t_nm.LAUNCHES, t_fc.LAUNCHES) == \
+            (before[0] + 1, before[1] + 1, before[2] + fec)
+        cpu, lc = engs["cpu"].run_block(cpu, t, 1)
+        np.testing.assert_array_equal(lg["ids"], lc["ids"])
+        keys = {k for k in lc if k.startswith("tele/")}
+        assert keys == {k for k in lg if k.startswith("tele/")}
+        for k in keys:
+            if k in TELE_EXACT:
+                np.testing.assert_array_equal(lg[k], lc[k], err_msg=k)
+            else:
+                np.testing.assert_allclose(lg[k], lc[k], rtol=TELE_RTOL[k],
+                                           err_msg=k)
+        for name in ("part_count", "quar_pkts"):
+            assert torch.equal(getattr(card.tele, name).cpu(),
+                               getattr(cpu.tele, name))
+        for name in ("arrival_mass", "stale_sum"):
+            np.testing.assert_allclose(getattr(card.tele, name).cpu(),
+                                       getattr(cpu.tele, name), rtol=1e-6)
+        for k in cpu.params:
+            np.testing.assert_allclose(card.params[k].cpu(), cpu.params[k],
+                                       rtol=1e-4, atol=1e-5)
+    want = {"selection": {"tele/part_quartile"},
+            "ef": {"tele/ef_norm"},
+            "iid_downlink": {"tele/downlink_loss", "tele/fec_recovered",
+                             "tele/arq_recovered"}}[case]
+    assert want <= keys
+
+
+@pytest.mark.cuda
+def test_cuda_event_stream_stamps_the_card(dev, tmp_path):
+    """A FederatedServer run at level full on the card streams its rounds,
+    its client aggregates and the program ledger, stamped with the
+    card."""
+    from repro_torch.core.telemetry import TelemetryConfig
+    from repro_torch.utils.events import load_stream
+    data, nets = _async_inputs()
+    cfg = dataclasses.replace(_async_cfg("async", 0.3),
+                              telemetry=TelemetryConfig(level="full"))
+    path = str(tmp_path / "ev.jsonl")
+    FederatedServer(cfg, data, nets, device=dev).run(events=path)
+    header, rounds, programs = load_stream(path)
+    env = header["env"]
+    assert env["backend"] == "cuda" and env["jax"] is None
+    assert env["device"] == torch.cuda.get_device_name(0)
+    assert len(rounds) == cfg.n_rounds and programs
+    assert all(r.buf_fill is not None and r.stale_hist is not None
+               for r in rounds)
+    assert sum('"client_stats"' in line for line in open(path)) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_telemetry_off_dispatches_the_frozen_ops(dev):
+    """At level off a TRA round on the card dispatches the ops of the step
+    frozen before the later subsystems one for one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from _torch_legacy_engine_v13 import LegacyState, make_legacy_round_step
+
+    class OpLog(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    data, nets = _async_inputs()
+    cfg = FLConfig(algo="qfedavg", n_rounds=2, clients_per_round=8,
+                   local_steps=2, batch_size=8, eval_every=100,
+                   tra=TRAConfig(enabled=True, loss_rate=0.1))
+    srv = FederatedServer(cfg, data, nets, device=dev)
+    st = srv._state
+    old = LegacyState(*st[:6])
+    legacy = make_legacy_round_step(cfg, srv.engine.cohort)
+    for t in range(2):
+        with OpLog() as new_ops:
+            st, _ = srv.engine.run_single(st, t)
+        with OpLog() as old_ops:
+            old, _ = legacy(srv.engine.ctx, old, t)
+        assert new_ops.ops == old_ops.ops
