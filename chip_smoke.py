@@ -257,8 +257,26 @@ Phases:
                 dispatching the ops of the step frozen before the later
                 subsystems one for one; phase 8 checks that the
                 quickstart round's profiled launches (the largest of
-                three profiles) stay at 890 +- 1 and profiles a
-                full-telemetry selection-bias grid round
+                three profiles, taken first, right after setup) stay at
+                890 +- 1 and profiles a full-telemetry selection-bias
+                grid round
+ 15. training   run last, after phase 8's profiles: the dense training
+                path: repro_torch.launch.train on
+                stablelm-3b at full width and depth (AdamW, lr 3e-4,
+                clip 1.0, batch 2, seq 64, 3 in-place steps; finite
+                losses, the first within 1.5 of ln V; ms a step, peak
+                memory beside the reckoned); prefill_logits against the
+                decode path's last-position logits on the trained
+                weights; a profile of one more step; one FL round of
+                make_fl_train_step at full width cut to 4 layers (C =
+                4, one insufficient client, loss 0.1, group_rate and
+                per_coord_count) on the card
+                and the CPU from the same params: packet masks and
+                delivered counts bitwise, the losses, the norms and the
+                first moments close; the reduced CLI's sweep (S = 3)
+                and async routes, 3 rounds each, card against CPU
+                record by record; no kernel of the port launched except
+                flash_decode in the decode comparison
 """
 from __future__ import annotations
 
@@ -297,6 +315,7 @@ from repro_torch.core.sweep import SweepEngine  # noqa: E402
 from repro_torch.core import telemetry as tele_mod  # noqa: E402
 from repro_torch.core.telemetry import TelemetryConfig  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.core.tra import (DEBIAS_MODES, TRAConfig,  # noqa: E402
                                   sufficiency_report)
 from repro_torch.data.synthetic import (generate_synthetic,  # noqa: E402
@@ -332,7 +351,10 @@ from repro_torch.kernels.tra_agg.ref import tra_agg_ref  # noqa: E402
 from repro_torch.kernels.uplink_fused import uplink_fused as uf  # noqa: E402
 from repro_torch.kernels.uplink_fused import ops as uplink_ops  # noqa: E402
 from repro_torch.kernels.uplink_fused.ref import uplink_ref  # noqa: E402
+from repro_torch.launch import fl_train  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import decode as decode_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.netsim.config import NetSimConfig  # noqa: E402
@@ -344,6 +366,7 @@ from repro_torch.netsim.recovery import (RECOVERY_POLICIES,  # noqa: E402
 from repro_torch.network import packets  # noqa: E402
 from repro_torch.network.trace import (ClientNetworks,  # noqa: E402
                                        log_upload_speeds, sample_networks)
+from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.utils.events import load_stream  # noqa: E402
 from repro_torch.utils.guards import assert_finite_tree  # noqa: E402
 # the channel kernels' edge cases, shared with the card tests
@@ -3756,6 +3779,306 @@ def run_telemetry_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 15
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "stablelm-3b"      # the FL launcher's default arch
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 64, 3
+FL_LAYERS = 4                   # the FL round's cut depth, full width
+FL_CLIENTS, FL_BATCH, FL_SEQ, FL_RATE = 4, 1, 32, 0.1
+CLI_ROUNDS = 3
+
+
+def train_memory_gb(n_params):
+    """The in-place AdamW step's reckoned peak: params, grads, mu, nu and
+    the clip's scaled copy of the grads, f32 (activations at batch 2 x
+    64 tokens are under a GB)."""
+    return 5 * 4 * n_params / 1e9
+
+
+def run_train_full(card):
+    """repro_torch.launch.train at full width and depth, the counts set to
+    0 just before and read just after: no kernel of the port runs in
+    training. Returns the run's result."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = train_mod.run(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                         "--batch", str(TRAIN_BATCH), "--seq",
+                         str(TRAIN_SEQ), "--lr", "3e-4"])
+    got = counts()
+    if got != expect():
+        fail(f"training launched kernels of the port: {got}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = res.cfg
+    ln_v = math.log(cfg.vocab)
+    if not all(math.isfinite(x) for x in res.losses + res.grad_norms):
+        fail(f"{cfg.name} training gave non-finite values: {res.losses} "
+             f"{res.grad_norms}")
+    if abs(res.losses[0] - ln_v) > 1.5:
+        fail(f"{cfg.name}'s first loss {res.losses[0]:.4f} is not within 1.5 "
+             f"of ln V = {ln_v:.4f}")
+    ms = [1e3 * t for t in res.step_s]
+    print(f"[train] {cfg.name} at full width and depth (L={cfg.n_layers}, "
+          f"d={cfg.d_model}, H={cfg.n_heads}, d_ff={cfg.d_ff}, vocab="
+          f"{cfg.vocab}, {cfg.n_params() / 1e9:.3f} B params, f32) through "
+          f"repro_torch.launch.train: AdamW lr 3e-4, clip 1.0, batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, {TRAIN_STEPS} in-place steps; "
+          f"losses {[round(x, 4) for x in res.losses]} (ln V = {ln_v:.4f}), "
+          f"grad norms {[round(x, 4) for x in res.grad_norms]}; ms a step "
+          f"{[round(x, 1) for x in ms]} (median of steps 2.. "
+          f"{statistics.median(ms[1:]):.1f}); peak memory {peak_gb:.2f} GB "
+          f"(reckoned {train_memory_gb(cfg.n_params()):.2f} GB: params, "
+          f"grads, mu, nu, the clip's copy); no port kernel launched | "
+          f"{card}", flush=True)
+    return res
+
+
+def profile_train_step(res, card):
+    """Device busy share, launches and top kernels of one more in-place
+    full-width step (the run's weights and moments, a fresh batch)."""
+    step_fn, _ = steps_mod.make_train_step(res.cfg, TrainConfig(lr=3e-4))
+    batch = train_mod.synth_batch(res.cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                  np.random.default_rng(1), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res.params, res.opt_state, m = step_fn(res.params, res.opt_state,
+                                               batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not math.isfinite(float(m["loss"])):
+        fail(f"the profiled training step's loss is {float(m['loss'])}")
+    return print_profile(f"1 {res.cfg.name} AdamW train step (batch "
+                         f"{TRAIN_BATCH} x {TRAIN_SEQ}) | {card}", prof,
+                         wall_ms, 1)
+
+
+def check_prefill_vs_decode(res, card):
+    """prefill_logits on the trained full-width weights against the
+    serving decode path's (one flash_decode launch a layer and token)
+    last-position logits at the same prompt, the counts set to 0 just
+    before the decode path and read just after."""
+    cfg, params = res.cfg, res.params
+    prompt = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), dtype=torch.int32,
+        device="cuda")
+    cache = decode_mod.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                  torch.float32, "cuda")
+    zero_counts()
+    with torch.no_grad():
+        dec, _ = serve.prefill_into_cache(cfg, params, prompt, cache)
+    got = counts()
+    n = cfg.n_layers * SERVE_PROMPT
+    if got != expect(flash_decode=n):
+        fail(f"the decode path launched {got}, expected {n} flash_decode")
+    del cache
+    pre = steps_mod.make_prefill_step(cfg)(params, {"tokens": prompt})
+    err = float((pre - dec).abs().max())
+    # f32 on the card with TF32 off; the chunked attention's matmuls and
+    # the decode kernel sum in other orders; logits are O(1)
+    if not torch.allclose(pre, dec, rtol=1e-4, atol=1e-4):
+        fail(f"prefill_logits differ from the decode path: {err:.3e}")
+    print(f"[train] prefill_logits vs the decode path's last logits on the "
+          f"trained {cfg.name} (prompt {SERVE_BATCH} x {SERVE_PROMPT}, "
+          f"{got['flash_decode']} flash_decode launches): max |diff| "
+          f"{err:.3e} (rtol/atol 1e-4), argmax equal "
+          f"{bool(torch.equal(pre.argmax(-1), dec.argmax(-1)))} | {card}",
+          flush=True)
+
+
+def fl_round(cfg, params, batch, debias, dev):
+    """One round of make_fl_train_step on ``dev``: (new params, the
+    optimizer state, metrics)."""
+    step, opt = fl_train.make_fl_train_step(
+        cfg, TrainConfig(), TRAConfig(loss_rate=FL_RATE, debias=debias),
+        FL_CLIENTS)
+    suff = torch.tensor([0.0] + [1.0] * (FL_CLIENTS - 1), device=dev)
+    p = params if dev == "cpu" else tree_to(params, dev)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(p, opt.init(p), b, suff, prng.PRNGKey(1000, dev))
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_fl_masks(cfg, params):
+    """Every leaf's per-packet keep masks of the round, card against CPU,
+    bitwise (the delivery masks are these repeated over each packet's
+    floats)."""
+    leaves = tree_leaves(params)
+    n_pkts = 0
+    keys = {d: fl_train.round_keys(prng.PRNGKey(1000, d), len(leaves),
+                                   FL_CLIENTS) for d in ("cuda", "cpu")}
+    for li, leaf in enumerate(leaves):
+        for c in range(FL_CLIENTS):
+            m = {d: fl_train.packet_keep(keys[d][li, c], leaf.numel(),
+                                         FL_RATE, 256) for d in keys}
+            if not torch.equal(m["cuda"].cpu(), m["cpu"]):
+                fail(f"FL packet masks differ between cuda and cpu at leaf "
+                     f"{li}, client {c}")
+            n_pkts += m["cpu"].numel()
+    return n_pkts
+
+
+def check_fl_round_card_vs_cpu(card):
+    """One FL round at full width cut to FL_LAYERS layers, on the card and
+    on the CPU from the same params and batch, in both debias modes."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=FL_LAYERS)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    batch = {k: torch.tensor(rng.integers(
+        0, cfg.vocab, (FL_CLIENTS, FL_BATCH, FL_SEQ)), dtype=torch.int32)
+        for k in ("tokens", "labels")}
+    n_pkts = check_fl_masks(cfg, params)
+    lr = TrainConfig().lr
+    for debias in ("group_rate", "per_coord_count"):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        (pg, sg, mg), t_card = fl_round(cfg, params, batch, debias, "cuda")
+        got = counts()
+        if got != expect():
+            fail(f"the FL round launched kernels of the port: {got}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        (pc, sc, mc), t_cpu = fl_round(cfg, params, batch, debias, "cpu")
+        if not torch.equal(mg["client_delivered"].cpu(),
+                           mc["client_delivered"]):
+            fail(f"FL delivered counts differ ({debias}): "
+                 f"{mg['client_delivered'].tolist()} vs "
+                 f"{mc['client_delivered'].tolist()}")
+        errs = {}
+        for k in ("loss", "client_losses", "grad_norm", "client_grad_ssq"):
+            a, b = mg[k].cpu(), mc[k]
+            errs[k] = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+            if not torch.allclose(a, b, rtol=1e-4, atol=0):
+                fail(f"FL {k} differs between cuda and cpu ({debias}): "
+                     f"{a.tolist()} vs {b.tolist()}")
+        # mu after one step from zeros is (1 - b1) times the clipped
+        # aggregate: the aggregate itself, leaf by leaf
+        mu_err = p_err = 0.0
+        n_far = n_all = 0
+        for a, b in zip(tree_leaves(sg["mu"]), tree_leaves(sc["mu"])):
+            e = float((a.cpu() - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+            mu_err = max(mu_err, e)
+        # AdamW's first step moves a coordinate by lr g / (|g| + 1e-8):
+        # where |g| is near 1e-8 its last digits move the step by a part
+        # of lr, so the parameters are held to lr / 2 and the
+        # coordinates past lr / 100 are counted
+        for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+            d = (a.cpu() - b).abs()
+            p_err = max(p_err, float(d.max()))
+            n_far += int((d > 0.01 * lr).sum())
+            n_all += d.numel()
+        print(f"[train] FL round ({debias}), {cfg.name} at full width cut to "
+              f"{FL_LAYERS} layers ({cfg.n_params() / 1e9:.3f} B params), "
+              f"C = {FL_CLIENTS}, 1 insufficient at loss {FL_RATE}, batch "
+              f"{FL_BATCH} x {FL_SEQ} a client, AdamW: card {t_card:.2f} s, "
+              f"CPU {t_cpu:.2f} s; {n_pkts} packet masks bitwise, delivered "
+              f"{mg['client_delivered'].tolist()} equal; loss "
+              f"{float(mg['loss']):.6f} (rel diff {errs['loss']:.2e}), "
+              f"grad norm {float(mg['grad_norm']):.5f} "
+              f"({errs['grad_norm']:.2e}), client ssq rel diff "
+              f"{errs['client_grad_ssq']:.2e}; mu {mu_err:.2e} of its "
+              f"largest (1e-4), params max |diff| {p_err:.2e} (lr / 2 = "
+              f"{0.5 * lr:.1e}), {n_far} of {n_all} past lr / 100; "
+              f"peak memory {peak_gb:.2f} GB; no port kernel launched | "
+              f"{card}", flush=True)
+        if mu_err > 1e-4 or p_err > 0.5 * lr:
+            fail(f"FL round differs between cuda and cpu ({debias}): first "
+                 f"moments {mu_err:.3e} of their largest, params "
+                 f"{p_err:.3e} (lr {lr})")
+        del pg, sg, mg, pc, sc, mc
+        torch.cuda.empty_cache()
+    print(f"[train] the FL round check took {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+
+
+CLI_ROUTES = {
+    "sweep": ["--sweep-loss-rates", "0.0,0.1,0.3", "--debias",
+              "group_rate"],
+    "async": ["--server-mode", "async", "--debias", "group_rate",
+              "--deadline-s", "0.5", "--buffer-k", "2"],
+}
+
+
+def check_fl_cli_routes(card):
+    """The FL launcher's sweep (S = 3) and async routes on the reduced
+    stablelm-3b, CLI_ROUNDS rounds each with --events-out, on the card
+    (the counts set to 0 just before and read just after) and the CPU,
+    both from the CPU generator's initial weights (a card's generator
+    draws other numbers): the streams' records agree, the losses rtol
+    1e-4."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fl_")
+    own_init = fl_train._init
+    fl_train._init = lambda cfg, dev: tree_to(
+        tf.init_params(cfg, torch.Generator().manual_seed(0)), dev)
+    try:
+        _check_fl_cli_routes(card, tmp)
+    finally:
+        fl_train._init = own_init
+
+
+def _check_fl_cli_routes(card, tmp):
+    for route, extra in CLI_ROUTES.items():
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{route}_{dev}.jsonl")
+            argv = ["--arch", TRAIN_ARCH, "--reduced", "--steps",
+                    str(CLI_ROUNDS), "--telemetry", "scalars",
+                    "--events-out", path, "--device", dev, *extra]
+            zero_counts()
+            t0 = time.perf_counter()
+            if fl_train.main(argv) != 0:
+                fail(f"fl_train {route} on {dev} exited non-zero")
+            secs = time.perf_counter() - t0
+            got = counts()
+            if got != expect():
+                fail(f"fl_train {route} launched kernels of the port: {got}")
+            streams[dev] = (load_stream(path), secs)
+        ((hg, rg, _), tg), ((hc, rc, _), tc) = streams["cuda"], \
+            streams["cpu"]
+        n = CLI_ROUNDS * (3 if route == "sweep" else 1)
+        if len(rg) != n or len(rc) != n or hg["env"]["backend"] != "cuda":
+            fail(f"fl_train {route}: {len(rg)} / {len(rc)} round records, "
+                 f"expected {n}; backend {hg['env']['backend']}")
+        worst = 0.0
+        for a, b in zip(rg, rc):
+            da, db = a.to_json(), b.to_json()
+            la, lb = da.pop("train_loss"), db.pop("train_loss")
+            worst = max(worst, abs(la - lb) / abs(lb))
+            if da != db or not math.isfinite(la) or abs(la - lb) > 1e-4 * abs(
+                    lb):
+                fail(f"fl_train {route} records differ between cuda and "
+                     f"cpu: {a.to_json()} vs {b.to_json()}")
+        print(f"[train] fl_train --reduced {route} route, {CLI_ROUNDS} rounds"
+              f": card {tg:.2f} s, CPU {tc:.2f} s, {n} round records agree "
+              f"(losses {[round(r.train_loss, 4) for r in rg]}, rel diff "
+              f"{worst:.2e}); no port kernel launched | {card}", flush=True)
+
+
+def run_train_phase(card):
+    """Phase 15: the dense training path. Returns the flash_decode launches
+    of the decode comparison."""
+    t_phase = time.perf_counter()
+    res = run_train_full(card)
+    profile_train_step(res, card)
+    res.opt_state = None                 # the moments go; params stay
+    torch.cuda.empty_cache()
+    check_prefill_vs_decode(res, card)
+    del res
+    torch.cuda.empty_cache()
+    check_fl_round_card_vs_cpu(card)
+    check_fl_cli_routes(card)
+    print(f"[train] the training phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 8
 # ---------------------------------------------------------------------------
 def median_ms(fn, reps=100, warmup=10):
@@ -4368,12 +4691,11 @@ def entry(name, source, replaces, launches, max_err, t):
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke run needs a "
-             "CUDA card")
-    t_start = time.perf_counter()
-    card = setup()
+def run_phases_1_to_14(card):
+    """Phases 1-14 as the script runs them: every kernel against its
+    plain version, every earlier slice's path on the card, the kernels'
+    timings and phase 8's profiles. Returns what the ``kernels`` line
+    reports: the main path's counts, the errors and the timings."""
     dev = torch.device("cuda")
     max_err = check_kernels(dev)
     max_err = max(max_err, check_uplink_tails(dev)[1])
@@ -4419,13 +4741,6 @@ def main() -> int:
     time_packet_mask(PM_TILE_SHAPE, card)
     qfed_t = time_qfed(TRA_SHAPE, card)
     time_qfed(TRA_TILE_SHAPE, card)
-    # the profiler drops events now and then, never adds one (one run
-    # counted 888 with two kernels one short), so the launch count is the
-    # largest of three profiles
-    off_launches = max(profile_rounds(card) for _ in range(3))
-    if not 889 <= off_launches <= 891:
-        fail(f"a quickstart round at telemetry level off profiled "
-             f"{off_launches} launches, not 890 +- 1")
     profile_grid(card)
     profile_fault_grid(card)
     profile_recovery_grid(card)
@@ -4442,41 +4757,74 @@ def main() -> int:
     profile_async_grid(card, traced=False)
     for label, _, _ in ASYNC_CASES:
         profile_async_case(card, label)
+    return dict(launches=launches, max_err=max_err, main_t=main_t,
+                grid_counts=grid_counts, batched_err=batched_err,
+                batched_t=batched_t, mask_err=mask_err, mask_t=mask_t,
+                single_fault_counts=single_fault_counts,
+                fault_counts=fault_counts, robust_err=robust_err,
+                robust_t=robust_t, robust_batched_t=robust_batched_t,
+                rec_counts=rec_counts, fec_err=fec_err, fec_t=fec_t,
+                proto_counts=proto_counts, tra_err=tra_err, tra_t=tra_t,
+                qfed_err=qfed_err, qfed_t=qfed_t, pm_err=pm_err, pm_t=pm_t,
+                fd_launches=fd_launches, fd_err=fd_err, fd_t=fd_t)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a "
+             "CUDA card")
+    t_start = time.perf_counter()
+    card = setup()
+    # phase 8's launch count of a quickstart round at telemetry level off,
+    # taken first: the profiler loses device records, never adds one, and
+    # loses more the more device work the process has done. After phases
+    # 1-14 it records 886.8 kernels a round where the round dispatches the
+    # same aten ops, the same port launches and the same 889.8 runtime
+    # launch calls as after setup (tools/torch_launch_count_probe.py), so
+    # the count is the largest of three profiles of a fresh process
+    off_launches = max(profile_rounds(card) for _ in range(3))
+    if not 889 <= off_launches <= 891:
+        fail(f"a quickstart round at telemetry level off profiled "
+             f"{off_launches} launches, not 890 +- 1")
+    r = run_phases_1_to_14(card)
+    run_train_phase(card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
 
     summary = {"kernels": [
         entry("uplink_fused", "src/repro_torch/csrc/uplink_fused.cu",
               "src/repro/kernels/uplink_fused/uplink_fused.py:156",
-              launches, max_err, main_t),
+              r["launches"], r["max_err"], r["main_t"]),
         entry("uplink_fused_batched", "src/repro_torch/csrc/uplink_fused.cu",
               "src/repro/kernels/uplink_fused/uplink_fused.py:221",
-              grid_counts["uplink_fused_batched"], batched_err, batched_t),
+              r["grid_counts"]["uplink_fused_batched"], r["batched_err"],
+              r["batched_t"]),
         entry("netsim_mask", "src/repro_torch/csrc/netsim_mask.cu",
               "src/repro/kernels/netsim_mask/netsim_mask.py:66",
-              grid_counts["netsim_mask"], mask_err, mask_t),
+              r["grid_counts"]["netsim_mask"], r["mask_err"], r["mask_t"]),
         entry("robust_agg", "src/repro_torch/csrc/robust_agg.cu",
               "src/repro/kernels/robust_agg/robust_agg.py:170",
-              single_fault_counts["robust_agg"], robust_err["single"],
-              robust_t),
+              r["single_fault_counts"]["robust_agg"],
+              r["robust_err"]["single"], r["robust_t"]),
         entry("robust_agg_batched", "src/repro_torch/csrc/robust_agg.cu",
               "src/repro/kernels/robust_agg/robust_agg.py:238",
-              fault_counts["robust_agg_batched"], robust_err["batched"],
-              robust_batched_t),
+              r["fault_counts"]["robust_agg_batched"],
+              r["robust_err"]["batched"], r["robust_batched_t"]),
         entry("fec_recover", "src/repro_torch/csrc/fec_recover.cu",
               "src/repro/kernels/fec_recover/fec_recover.py:53",
-              rec_counts["fec_recover"], fec_err, fec_t),
+              r["rec_counts"]["fec_recover"], r["fec_err"], r["fec_t"]),
         entry("tra_agg", "src/repro_torch/csrc/tra_agg.cu",
               "src/repro/kernels/tra_agg/tra_agg.py:41",
-              proto_counts["tra_agg"], tra_err, tra_t),
+              r["proto_counts"]["tra_agg"], r["tra_err"], r["tra_t"]),
         entry("qfed_reweight", "src/repro_torch/csrc/qfed_reweight.cu",
               "src/repro/kernels/qfed_reweight/qfed_reweight.py:33",
-              proto_counts["qfed_reweight"], qfed_err, qfed_t),
+              r["proto_counts"]["qfed_reweight"], r["qfed_err"],
+              r["qfed_t"]),
         entry("packet_mask", "src/repro_torch/csrc/packet_mask.cu",
               "src/repro/kernels/packet_mask/packet_mask.py:26",
-              proto_counts["packet_mask"], pm_err, pm_t),
+              r["proto_counts"]["packet_mask"], r["pm_err"], r["pm_t"]),
         entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
               "src/repro/kernels/flash_decode/flash_decode.py:65",
-              fd_launches, fd_err, fd_t),
+              r["fd_launches"], r["fd_err"], r["fd_t"]),
     ]}
     print(card)
     print(json.dumps(summary))

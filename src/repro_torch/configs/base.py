@@ -6,9 +6,10 @@ exporting ``CONFIG`` (the exact published shape) built on
 ``ModelConfig.reduced()`` returns the CPU-sized variant of the same
 family (<=2 layers, d_model<=512, <=4 experts).
 
-The port serves the dense family (``models/decode.py``); the other
-families' configs are here so the registry is whole. ``TrainConfig`` and
-the dry run's ``INPUT_SHAPES`` come with training and the dry run.
+The port serves and trains the dense family (``models/decode.py``,
+``models/transformer.py``); the other families' configs are here so
+the registry is whole. :data:`INPUT_SHAPES` are the dry run's input
+shapes, :class:`TrainConfig` the training step's hyperparameters.
 """
 from __future__ import annotations
 
@@ -174,6 +175,42 @@ class ModelConfig:
         )
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-step hyperparameters (shared by launcher + FL driver)."""
+    optimizer: str = "adamw"        # "sgd" | "adamw"
+    lr: float = 3e-4
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    remat: str = "none"             # "none" | "full" | "dots"
+    microbatch: int = 0             # 0 = no grad accumulation
+    dtype: str = "bfloat16"
+    seed: int = 0
+    # TRA-sparsified gradient collective (beyond-paper)
+    tra_collective_drop: float = 0.0
+    tra_debias: str = "per_coord_count"
+
+
 # registry ------------------------------------------------------------------
 _REGISTRY: dict = {}
 
@@ -204,7 +241,8 @@ ASSIGNED = (
 
 
 def _load_all() -> None:
-    """Import the port's own config modules, one per assigned arch."""
-    for a in ASSIGNED:
-        importlib.import_module(
-            f"repro_torch.configs.{a.replace('-', '_').replace('.', '_')}")
+    """Import the port's own config modules, one per assigned arch, and
+    the token stand-in of ``synthetic_mlp``."""
+    mods = [a.replace("-", "_").replace(".", "_") for a in ASSIGNED]
+    for m in mods + ["synthetic_mlp"]:
+        importlib.import_module(f"repro_torch.configs.{m}")

@@ -90,3 +90,34 @@ def cache_from_jax(cache: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     tensors on ``device`` in its dtype, so a decode can continue from the
     reference's state."""
     return model_params_from_jax(cache, device)
+
+
+def opt_state_from_jax(state, device):
+    """An optimizer state of ``repro.optim`` -> the port's
+    (``repro_torch.optim``), in the reference's tree layout: SGD's
+    ``()`` or momentum tree, AdamW's ``{"mu", "nu", "count"}`` (the count
+    an int32 scalar), single or stacked along a scenario axis."""
+    if isinstance(state, tuple):
+        return tuple(opt_state_from_jax(s, device) for s in state)
+    if isinstance(state, dict):
+        return model_params_from_jax(state, device)
+    return _leaf(np.asarray(state), device)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (nested dicts and tuples; a gradient tree, a
+    step's parameters or optimizer state) -> the same tree of numpy
+    arrays on the host, each in its dtype (bf16 as ``ml_dtypes``' if
+    numpy has it, else f32)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            import ml_dtypes
+        except ImportError:
+            return t.float().numpy()
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -1,15 +1,24 @@
-"""GQA attention: parameters, the QKV projection and the KV-cache decode
-path (the reference's ``repro/models/attention.py``).
+"""GQA attention: parameters, the QKV projection, the query-chunked
+train/prefill attention and the KV-cache decode path (the reference's
+``repro/models/attention.py``).
 
-The decode attention goes through the port's flash-decode kernel
-(``kernels/flash_decode``): every decode step of every layer launches
-it once on the card, where the reference computes the same math in
-plain ``jnp``. The chunked train/prefill attention and the cross
-attention come with training and the encoder-decoder family.
+* Train/prefill attention walks the query blocks with an f32 softmax,
+  so the live score buffer is ``(B, Cq, H, T)``, not ``(B, S, H, S)``.
+  With autograd recording, each block is checkpointed: its scores and
+  probabilities are recomputed in backward, as the reference's
+  ``jax.checkpoint`` does. Sliding-window and gemma3-style local:global
+  layers are expressed through the mask alone (``_band_mask``).
+* The decode attention goes through the port's flash-decode kernel
+  (``kernels/flash_decode``): every decode step of every layer launches
+  it once on the card, where the reference computes the same math in
+  plain ``jnp``.
+
+The cross attention comes with the encoder-decoder family.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.models.layers import apply_rope, rope_freqs, truncated_normal
@@ -45,6 +54,74 @@ def _project_qkv(p, x, cos, sin, *, rope=True):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def _band_mask(q_pos, k_pos, *, causal, window, is_global):
+    """(Q, T) bool mask. window: int or None. is_global: a bool (or bool
+    tensor) for the layer, or None."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        local = k_pos[None, :] > (q_pos[:, None] - window)
+        if is_global is not None:   # per-layer flag: global layers see all
+            local = local | is_global
+        m &= local
+    return m
+
+
+# ---------------------------------------------------------------------------
+# chunked attention (train / prefill)
+# ---------------------------------------------------------------------------
+def attention(q, k, v, *, causal=True, window=None, is_global=None,
+              q_chunk=512, q_offset=0):
+    """q: (B,S,H,dh)  k,v: (B,T,KV,dh)  ->  (B,S,H,dh).
+
+    Query-chunked with f32 softmax; GQA via head-group reshape. Masked
+    scores are -1e30.
+    """
+    B, S, H, dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = dh ** -0.5
+    nc = max(1, S // q_chunk)
+    C = S // nc
+    if S % nc:
+        raise ValueError(f"sequence {S} does not split into query chunks "
+                         f"of about {q_chunk}")
+    qg = q.reshape(B, nc, C, KV, G, dh)
+    k_pos = torch.arange(T, device=q.device)
+
+    def chunk_attn(qc, i):
+        q_pos = q_offset + i * C + torch.arange(C, device=q.device)
+        s = torch.einsum("bckgd,btkd->bckgt", qc, k).float() * scale
+        mask = _band_mask(q_pos, k_pos, causal=causal, window=window,
+                          is_global=is_global)
+        s = torch.where(mask[None, :, None, None, :], s, -1e30)
+        p = torch.softmax(s, -1)
+        return torch.einsum("bckgt,btkd->bckgd", p.to(v.dtype), v)
+
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = [checkpoint(chunk_attn, qg[:, i], i, use_reentrant=False)
+            if grad else chunk_attn(qg[:, i], i) for i in range(nc)]
+    return torch.stack(outs, 1).reshape(B, S, H, dh)
+
+
+def attn_apply(p, x, *, rope_theta, causal=True, window=None, is_global=None,
+               q_chunk=512, positions=None):
+    """Full self-attention over x: (B,S,d)."""
+    B, S, d = x.shape
+    dh = p["wq"].shape[-1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    cos, sin = rope_freqs(dh, rope_theta, positions)
+    q, k, v = _project_qkv(p, x, cos, sin)
+    o = attention(q, k, v, causal=causal, window=window, is_global=is_global,
+                  q_chunk=min(q_chunk, S))
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out
 
 
 # ---------------------------------------------------------------------------

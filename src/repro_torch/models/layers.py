@@ -85,3 +85,15 @@ def mlp_init(gen, d, f, gelu: bool, dtype, stack=()):
     if not gelu:
         p["wg"] = truncated_normal(gen, (*stack, d, f), dtype=dtype)
     return p
+
+
+def softmax_cross_entropy(logits, labels, label_mask=None):
+    """logits (..., V) f32-accumulated CE; labels integer (...,)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, -1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if label_mask is not None:
+        loss = loss * label_mask
+        return loss.sum() / torch.clamp(label_mask.sum(), min=1.0)
+    return loss.mean()

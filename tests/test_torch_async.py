@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from tests._torch_ref_caches import reference_program_caches  # noqa: F401
 import torch
 
 from repro.core import async_agg as j_async

@@ -13,6 +13,7 @@ import os
 import jax
 import numpy as np
 import pytest
+from tests._torch_ref_caches import reference_program_caches  # noqa: F401
 import torch
 
 from repro.checkpoint import save_checkpoint as j_save

@@ -249,3 +249,9 @@ def test_non_dense_families_raise(name):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         t_decode.decode_step(cfg, {}, torch.zeros((1, 1), dtype=torch.int32),
                              {}, 0)
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        t_tf.forward(cfg, {}, batch)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        t_tf.prefill_logits(cfg, {}, batch)

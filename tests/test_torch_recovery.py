@@ -35,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from tests._torch_ref_caches import reference_program_caches  # noqa: F401
 import torch
 
 from repro.core.lossbudget import LossBudgetConfig as JBudget

@@ -132,6 +132,9 @@ def test_config_matches_reference(name):
 def test_config_registry():
     assert t_base.ASSIGNED == j_base.ASSIGNED
     assert t_base.FAMILIES == j_base.FAMILIES
-    assert t_base.list_configs() == sorted(j_base.ASSIGNED)
+    # the assigned archs and the token stand-in "synthetic-mlp", as the
+    # reference registers them
+    assert t_base.list_configs() == j_base.list_configs() == sorted(
+        j_base.ASSIGNED + ("synthetic-mlp",))
     with pytest.raises(KeyError, match="unknown arch"):
         t_base.get_config("no-such-arch")

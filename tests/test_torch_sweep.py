@@ -17,6 +17,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from tests._torch_ref_caches import reference_program_caches  # noqa: F401
 import torch
 
 from repro.core.server import FLConfig as JConfig

@@ -38,6 +38,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from tests._torch_ref_caches import reference_program_caches  # noqa: F401
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
